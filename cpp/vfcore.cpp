@@ -1,22 +1,19 @@
-// vulkan-forge TPU build: native host runtime core.
+// vulkan-forge (JAX rebuild): native host runtime core.
 //
 // The reference keeps its host runtime in native code (Rust: grid meshing
 // src/terrain/mesh.rs, DEM statistics src/lib.rs:905-932 /
-// src/terrain_stats.rs, PNG encode via the image crate). This C++ core is
-// the TPU build's equivalent for the CPU-side hot paths; the compute path
-// (rasterization/shading) lives on the TPU in JAX/Pallas.
+// src/terrain_stats.rs). This C++ core is this rebuild's equivalent for
+// those CPU-side hot paths; the compute path (rasterization/shading) lives
+// on the device in JAX/Pallas, and PNGs are encoded by the standard
+// library (vulkan_forge/_io.py).
 //
 // Exposed through ctypes (see vulkan_forge/_native/__init__.py); every entry
 // point has a NumPy fallback, so this library is a fast path, not a hard
 // dependency.
 
-#include <cstdint>
-#include <cstring>
-#include <cmath>
 #include <algorithm>
-#include <vector>
-
-#include <zlib.h>
+#include <cmath>
+#include <cstdint>
 
 extern "C" {
 
@@ -80,79 +77,6 @@ void vf_dem_stats(const float* h, int64_t n, float* out) {
     out[1] = mx;
     out[2] = mean;
     out[3] = static_cast<float>(std::sqrt(var / static_cast<double>(n)));
-}
-
-namespace {
-
-void put_be32(std::vector<uint8_t>& v, uint32_t x) {
-    v.push_back(static_cast<uint8_t>(x >> 24));
-    v.push_back(static_cast<uint8_t>(x >> 16));
-    v.push_back(static_cast<uint8_t>(x >> 8));
-    v.push_back(static_cast<uint8_t>(x));
-}
-
-void put_chunk(std::vector<uint8_t>& v, const char type[4],
-               const uint8_t* data, size_t len) {
-    put_be32(v, static_cast<uint32_t>(len));
-    const size_t start = v.size();
-    v.insert(v.end(), type, type + 4);
-    if (len) v.insert(v.end(), data, data + len);
-    const uint32_t crc = crc32(0L, v.data() + start,
-                               static_cast<uInt>(len + 4));
-    put_be32(v, crc);
-}
-
-}  // namespace
-
-// Deterministic RGBA8 PNG encode (8-bit, color type 6, zlib level 6,
-// filter 0 rows). Returns bytes written, or -1 if out_cap is too small /
-// compression failed. The analog of image::RgbaImage::save in the reference
-// (src/lib.rs:330-333).
-int64_t vf_png_encode_rgba(const uint8_t* rgba, int32_t width, int32_t height,
-                           uint8_t* out, int64_t out_cap) {
-    const int64_t stride = static_cast<int64_t>(width) * 4;
-    std::vector<uint8_t> raw;
-    raw.reserve(static_cast<size_t>((stride + 1) * height));
-    for (int32_t y = 0; y < height; ++y) {
-        raw.push_back(0);  // filter type 0 (None)
-        const uint8_t* row = rgba + static_cast<int64_t>(y) * stride;
-        raw.insert(raw.end(), row, row + stride);
-    }
-
-    uLongf comp_cap = compressBound(static_cast<uLong>(raw.size()));
-    std::vector<uint8_t> comp(comp_cap);
-    if (compress2(comp.data(), &comp_cap, raw.data(),
-                  static_cast<uLong>(raw.size()), 6) != Z_OK) {
-        return -1;
-    }
-    comp.resize(comp_cap);
-
-    std::vector<uint8_t> png;
-    png.reserve(comp.size() + 128);
-    static const uint8_t sig[8] = {137, 80, 78, 71, 13, 10, 26, 10};
-    png.insert(png.end(), sig, sig + 8);
-
-    uint8_t ihdr[13];
-    ihdr[0] = static_cast<uint8_t>(width >> 24);
-    ihdr[1] = static_cast<uint8_t>(width >> 16);
-    ihdr[2] = static_cast<uint8_t>(width >> 8);
-    ihdr[3] = static_cast<uint8_t>(width);
-    ihdr[4] = static_cast<uint8_t>(height >> 24);
-    ihdr[5] = static_cast<uint8_t>(height >> 16);
-    ihdr[6] = static_cast<uint8_t>(height >> 8);
-    ihdr[7] = static_cast<uint8_t>(height);
-    ihdr[8] = 8;   // bit depth
-    ihdr[9] = 6;   // color type RGBA
-    ihdr[10] = 0;  // compression
-    ihdr[11] = 0;  // filter
-    ihdr[12] = 0;  // interlace
-    put_chunk(png, "IHDR", ihdr, 13);
-    put_chunk(png, "IDAT", comp.data(), comp.size());
-    put_chunk(png, "IEND", nullptr, 0);
-
-    if (static_cast<int64_t>(png.size()) > out_cap) return -1;
-    std::memcpy(out, png.data(), png.size());
-    return static_cast<int64_t>(png.size());
 }
 
 }  // extern "C"

@@ -3,12 +3,13 @@
 
 The reference proves output identity across graphics backends
 (Vulkan/DX12/Metal/GL) with one subprocess per backend
-(python/tools/backends_runner.py). The TPU build's backend matrix is
-{TPU+Pallas, TPU+jnp, CPU+jnp}: the same raster math through different
-compilation paths. Each backend runs in a fresh subprocess (fresh JAX
-runtime, the analog of not reusing the wgpu OnceCell context) with
-VF_BACKEND / JAX platform hints; the report has the same JSON shape and the
-same ok/unsupported/error classification.
+(python/tools/backends_runner.py). This rebuild's backend matrix is
+{GPU+Pallas (the Triton list kernel), GPU+jnp, CPU+jnp}: the same raster
+math through different compilation paths. Each backend runs in a fresh
+subprocess (fresh JAX runtime, the analog of not reusing the wgpu OnceCell
+context) with VF_BACKEND / JAX_PLATFORMS set, one after another (a JAX
+process reserves most of a GPU's memory); the report has the same JSON
+shape and the same ok/unsupported/error classification.
 """
 from __future__ import annotations
 
@@ -23,40 +24,29 @@ from typing import Optional
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, os.pardir)
 
-BACKENDS = ["TPU_PALLAS", "TPU_JNP", "CPU_JNP"]
+BACKENDS = ["GPU_PALLAS", "GPU_JNP", "CPU_JNP"]
 
 CHILD_SNIPPET = r"""
 import os, sys, time, hashlib
 sys.path.insert(0, os.environ["VF_REPO"])
 import numpy as np
 be = os.environ["VF_CHILD_BACKEND"]
-if be.startswith("CPU"):
-    import jax
-    try:
-        cpu = jax.devices("cpu")[0]
-    except Exception as e:
-        print("UNSUPPORTED: no cpu device:", e); raise SystemExit(3)
-    ctx = jax.default_device(cpu)
-else:
-    import jax
-    plats = {d.platform for d in jax.devices()}
-    if "tpu" not in plats:
-        print("UNSUPPORTED: no tpu device"); raise SystemExit(3)
-    import contextlib
-    ctx = contextlib.nullcontext()
+import jax
+want = "cpu" if be.startswith("CPU") else "gpu"
+if jax.devices()[0].platform != want:
+    print(f"UNSUPPORTED: no {want} device"); raise SystemExit(3)
 os.environ["VF_BACKEND"] = "pallas" if be.endswith("PALLAS") else "jnp"
 from vulkan_forge import Renderer
 w = int(os.environ.get("VF_WIDTH", "128"))
 h = int(os.environ.get("VF_HEIGHT", "128"))
 png = os.environ.get("VF_WRITE_PNG", "0") == "1"
-with ctx:
-    t0 = time.perf_counter()
-    r = Renderer(w, h)
-    arr = r.render_triangle_rgba()
-    dt = (time.perf_counter() - t0) * 1000.0
-    sha = hashlib.sha256(arr.tobytes()).hexdigest()
-    if png:
-        r.render_triangle_png(os.environ["VF_PNG_PATH"])
+t0 = time.perf_counter()
+r = Renderer(w, h)
+arr = r.render_triangle_rgba()
+dt = (time.perf_counter() - t0) * 1000.0
+sha = hashlib.sha256(arr.tobytes()).hexdigest()
+if png:
+    r.render_triangle_png(os.environ["VF_PNG_PATH"])
 print(sha, f"{dt:.3f}")
 """
 
@@ -77,6 +67,8 @@ def run_once(backend: str, width: int, height: int, write_png: bool,
     env["PYTHONUNBUFFERED"] = "1"
     env["VF_REPO"] = os.path.abspath(REPO)
     env["VF_CHILD_BACKEND"] = backend
+    if backend.startswith("CPU"):
+        env["JAX_PLATFORMS"] = "cpu"
     env["VF_WIDTH"] = str(width)
     env["VF_HEIGHT"] = str(height)
     if write_png:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Determinism harness for the TPU vulkan-forge build.
+"""Determinism harness for the vulkan-forge JAX rebuild.
 
 Renders a scene N times (optionally across processes) and asserts the raw
 RGBA bytes hash identically; writes a JSON report with the same keys as the
@@ -73,13 +73,14 @@ def run_multiprocess(w: int, h: int, runs: int, procs: int,
         ps = [ctx.Process(target=_mp_worker, args=(q, w, h, scene))
               for _ in range(max(1, procs))]
         t0 = time.perf_counter()
-        for p in ps:
-            p.start()
+        # One child at a time: a JAX process reserves most of a GPU's
+        # memory when it first uses the card, so a second would fail.
+        # Each child's result is drained before it is joined.
         shas = []
         for p in ps:
+            p.start()
+            shas.append(q.get(timeout=600)[0])
             p.join()
-        while len(shas) < len(ps):
-            shas.append(q.get()[0])
         dt = (time.perf_counter() - t0) * 1000.0
         if len(set(shas)) != 1:
             raise AssertionError(f"Non-deterministic across processes: {shas}")

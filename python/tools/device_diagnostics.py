@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Device diagnostics: enumerate accelerators and probe backends.
 
-TPU-native analog of the reference CLI (python/tools/device_diagnostics.py):
+The analog of the reference CLI (python/tools/device_diagnostics.py):
 same JSON shape ({"adapters": [...], "probes": [...]}) and the same exit
 policy -- success if any probe is ok, or all are unsupported.
 """
@@ -17,13 +17,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from vulkan_forge import device_probe, enumerate_adapters  # noqa: E402
 
-DEFAULT_BACKENDS = ["TPU", "CPU"]
+DEFAULT_BACKENDS = ["GPU", "CPU"]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--backends", nargs="*", default=None,
-                    help="Backends to probe (default: TPU CPU)")
+                    help="Backends to probe (default: GPU CPU)")
     ap.add_argument("--json", default="diag_out/device_diagnostics.json")
     args = ap.parse_args(argv)
 

@@ -219,41 +219,36 @@ def test_camera_inside_terrain_no_holes():
 
 
 def test_clipped_scene_pallas_backends_byte_identical():
-    """Near/far-crossing geometry through the PALLAS kernels: the clip
-    functional tests (az/aw/asum) inside the list and strip kernels must
-    byte-match the jnp oracle on a dirty scene, not just on clean ones
-    (where the tests are provably redundant)."""
-    import vulkan_forge._device as _device
-    if _device.default_platform() != "tpu":
-        pytest.skip("pallas kernels need the TPU")
-    import jax.numpy as jnp
-    from vulkan_forge._raster import pallas_backend, strips, tiles
+    """Near/far-crossing geometry through the list kernel: the clip
+    functional tests (az/aw/asum) inside the kernel must byte-match the
+    jnp oracle on a dirty scene, not just on clean ones (where the tests
+    are provably redundant), in both fill rules."""
+    from vulkan_forge._raster import pallas_backend, tiles
     from vulkan_forge._raster.setup import (bin_triangles, clip_to_fb,
                                             tile_counts, tile_span_max,
                                             triangle_setup)
 
     clip, attrs, indices = _gen_scene(5, n_tris=40)
-    clip_j = jnp.asarray(clip, jnp.float32)
-    x, y, z, w = clip_to_fb(clip_j, W, H)
-    records, bbox = triangle_setup(x, y, z, w,
-                                   jnp.asarray(attrs, jnp.float32),
-                                   jnp.asarray(indices), W, H)
-    cmax = int(tile_counts(bbox, W, H).max())
-    sx, sy = tile_span_max(bbox, W, H)
-    binning = bin_triangles(bbox, W, H, max(-(-cmax // 8) * 8, 8),
-                            span_x=int(sx), span_y=int(sy))
-    o0, o1, o2, om = tiles.render_gbuffer(records, binning.tile_lists, W, H)
-    p0, p1, p2, pm = pallas_backend.render_gbuffer(
-        records, binning.tile_lists, W, H, counts=binning.counts)
-    s0, s1, s2, sm = strips.render_gbuffer_strips(
-        records, bbox, int(indices.shape[0]), W, H)
+    for rule in ("inclusive", "hw"):
+        x, y, z, w = clip_to_fb(jnp.asarray(clip, jnp.float32), W, H)
+        records, bbox = triangle_setup(x, y, z, w,
+                                       jnp.asarray(attrs, jnp.float32),
+                                       jnp.asarray(indices), W, H,
+                                       fill_rule=rule)
+        cmax = int(tile_counts(bbox, W, H).max())
+        sx, sy = tile_span_max(bbox, W, H)
+        binning = bin_triangles(bbox, W, H, max(-(-cmax // 8) * 8, 8),
+                                span_x=int(sx), span_y=int(sy))
+        o0, o1, o2, om = tiles.render_gbuffer(records, binning.tile_lists,
+                                              W, H, fill_rule=rule)
+        p0, p1, p2, pm = pallas_backend.render_gbuffer(
+            records, binning.tile_lists, binning.counts, W, H,
+            fill_rule=rule, interpret=True)
 
-    om_ = np.asarray(om)
-    for name, (m2, a, b, c) in (("list", (pm, p0, p1, p2)),
-                                ("strips", (sm, s0, s1, s2))):
-        np.testing.assert_array_equal(np.asarray(m2), om_, err_msg=name)
-        for ch, ref in ((a, o0), (b, o1), (c, o2)):
+        om_ = np.asarray(om)
+        np.testing.assert_array_equal(np.asarray(pm), om_, err_msg=rule)
+        for ch, ref in ((p0, o0), (p1, o1), (p2, o2)):
             np.testing.assert_array_equal(
                 np.where(om_, np.asarray(ch), 0),
-                np.where(om_, np.asarray(ref), 0), err_msg=name)
-    assert om_.sum() > 1000
+                np.where(om_, np.asarray(ref), 0), err_msg=rule)
+        assert om_.sum() > 1000

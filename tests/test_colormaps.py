@@ -51,7 +51,7 @@ def test_lut_format_selection_env(monkeypatch):
     monkeypatch.delenv("VF_FORCE_LUT_UNORM", raising=False)
     t = vf.TerrainSpike(64, 64, grid=8)
     assert t.debug_lut_format() in ("Rgba8UnormSrgb", "Rgba8Unorm")
-    assert t.debug_lut_format() == "Rgba8UnormSrgb"  # TPU path supports sRGB
+    assert t.debug_lut_format() == "Rgba8UnormSrgb"  # the device path supports sRGB
     monkeypatch.setenv("VF_FORCE_LUT_UNORM", "1")
     t2 = vf.TerrainSpike(64, 64, grid=8)
     assert t2.debug_lut_format() == "Rgba8Unorm"

@@ -150,16 +150,84 @@ def test_shipped_rule_delta_vs_hw_is_boundary_only(seed):
         f"fill-rule delta too large: {diff.sum()}/{covered}")
 
 
-def test_hw_fill_rule_routes_dense_to_strips(monkeypatch):
-    """VF_FILL_RULE=hw on a dense grid mesh must route to the strips
-    backend (the one dense kernel whose records carry the 8.8 top-left
-    bias columns -- docs/PARITY.md), never the resident/vtx/packed
-    streams, regardless of VF_DENSE. Formalizes the VERDICT r4 item-8
-    story: strips IS the hw-rule dense backend.
+def _gbuffer(x, y, z, w, vary, indices, W, H, fill_rule="inclusive"):
+    records, bbox = triangle_setup(x, y, z, w, vary, indices, W, H,
+                                   fill_rule=fill_rule)
+    cap = int(tile_counts(bbox, W, H).max())
+    sx, sy = tile_span_max(bbox, W, H)
+    binning = bin_triangles(bbox, W, H, max(cap, 8),
+                            span_x=int(sx), span_y=int(sy))
+    return tiles.render_gbuffer(records, binning.tile_lists, W, H,
+                                fill_rule=fill_rule)
+
+
+def test_hw_fill_rule_matches_fixed_point_oracle():
+    # VF_FILL_RULE=hw coverage must equal the int64 top-left oracle exactly
+    # (shared mesh edges covered by exactly one triangle).
+    import math
+    from vulkan_forge import _mesh
+    from vulkan_forge._camera import look_at_rh, perspective_wgpu
+
+    grid, W, H = 16, 160, 120
+    with jax.default_device(jax.devices("cpu")[0]):
+        xyuv, idx = _mesh.build_grid_xyuv(grid)
+        x = xyuv[:, 0]
+        z = xyuv[:, 1]
+        h = np.sin(x * 1.3) * 0.25 + np.cos(z * 1.1) * 0.25
+        view = look_at_rh((3.0, 2.0, 3.0), (0, 0, 0), (0, 1, 0))
+        proj = perspective_wgpu(np.float32(math.radians(45.0)),
+                                np.float32(W / H), np.float32(0.1),
+                                np.float32(100.0))
+        world = np.stack([x, h, z, np.ones_like(x)], axis=-1)
+        clip = (world @ view.T) @ proj.T
+        vary = np.stack([h, x, z], axis=-1)
+        indices = idx.astype(np.int32).reshape(-1, 3)
+
+        hw_id, _ = hw_oracle.rasterize_hw(clip, vary, indices, W, H)
+
+        xf, yf, zf, wf = clip_to_fb(jnp.asarray(clip, jnp.float32), W, H)
+        _, _, _, mask = _gbuffer(xf, yf, zf, wf,
+                                 jnp.asarray(vary, jnp.float32),
+                                 jnp.asarray(indices), W, H, fill_rule="hw")
+        np.testing.assert_array_equal(np.asarray(mask), hw_id >= 0)
+
+
+def test_hw_fill_rule_shared_edges_single_owner():
+    # Two triangles sharing a diagonal: under the hw rule no pixel may be
+    # double-covered along the shared edge, and the union must equal the
+    # inclusive union (no dropped interior pixels).
+    W, H = 64, 64
+    with jax.default_device(jax.devices("cpu")[0]):
+        # unit quad split along the diagonal, axis-aligned in clip space
+        pos = np.array([[-0.5, -0.5], [0.5, -0.5], [0.5, 0.5], [-0.5, 0.5]],
+                       np.float32)
+        clip = np.concatenate([pos, np.zeros((4, 1), np.float32),
+                               np.ones((4, 1), np.float32)], axis=1)
+        vary = np.eye(4, 3, dtype=np.float32)
+        indices = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+        x, y, z, w = clip_to_fb(jnp.asarray(clip), W, H)
+
+        masks = {}
+        for rule in ("inclusive", "hw"):
+            records, bbox = triangle_setup(
+                x, y, z, w, jnp.asarray(vary), jnp.asarray(indices), W, H,
+                fill_rule=rule)
+            binning = bin_triangles(bbox, W, H, 8, span_x=1, span_y=8)
+            v0, v1, v2, mask = tiles.render_gbuffer(
+                records, binning.tile_lists, W, H, fill_rule=rule)
+            masks[rule] = np.asarray(mask)
+        # same union coverage; the rules differ only in shared-edge OWNERSHIP
+        np.testing.assert_array_equal(masks["hw"], masks["inclusive"])
+
+
+def test_hw_fill_rule_dense_mesh_list_kernel(monkeypatch, interpret_kernel):
+    """VF_FILL_RULE=hw on a dense grid mesh (sub-pixel cells) renders
+    through the list path -- the records carry the 8.8 top-left bias
+    columns -- and the list kernel byte-matches the jnp oracle there.
 
     Match: /root/reference/src/terrain/pipeline.rs:107-140 (the
     fixed-function rule is unconditional on the GPU; here it is a mode
-    every dense render must honor).
+    every render must honor).
     """
     import math
 
@@ -167,47 +235,27 @@ def test_hw_fill_rule_routes_dense_to_strips(monkeypatch):
     from vulkan_forge._camera import look_at_rh, perspective_wgpu
     from vulkan_forge._raster import pipeline as P
 
-    hits = []
-
-    def spy(name, ret=None):
-        def f(*a, **k):
-            hits.append(name)
-            if ret is not None:
-                return ret
-            raise AssertionError(f"{name} must not run under hw rule")
-        return f
-
-    monkeypatch.setattr(P, "_terrain_render_batch_resident",
-                        spy("resident"))
-    monkeypatch.setattr(P, "_terrain_render_batch_vtx", spy("vtx"))
-    monkeypatch.setattr(P, "_terrain_render_batch_packed", spy("packed"))
-    monkeypatch.setattr(P, "_terrain_render_batch_packed_split",
-                        spy("packed_split"))
-    monkeypatch.setattr(
-        P, "_terrain_render_strips",
-        spy("strips", ret=jnp.zeros((120, 160), jnp.uint32)))
-
-    grid = 104                                  # T = 21218 > threshold
+    grid = 104                                  # T = 21218, sub-pixel cells
     xyuv, idx = _mesh.build_grid_xyuv(grid)
     lut, _ = _colormap.build_lut("terrain")
     kw = dict(spacing=1.0, exaggeration=1.0, h_min=0.0, h_max=1.0,
               exposure=1.0, sun_dir=(0.3, 0.9, 0.3), lut=lut,
-              width=160, height=120, backend="pallas",
-              row_size=2 * (grid - 1), grid_n=grid)
+              width=160, height=120)
     view = look_at_rh((3, 2, 3), (0, 0, 0), (0, 1, 0))
     proj = perspective_wgpu(np.float32(math.radians(45)),
                             np.float32(160 / 120), np.float32(0.1),
                             np.float32(100))
+    args = (xyuv, idx.reshape(-1, 3), np.zeros((1, 1), np.float32), view,
+            proj)
 
     monkeypatch.setenv("VF_FILL_RULE", "hw")
-    for dense in (None, "vtx", "packed", "resident"):
-        if dense is None:
-            monkeypatch.delenv("VF_DENSE", raising=False)
-        else:
-            monkeypatch.setenv("VF_DENSE", dense)
-        hits.clear()
-        img = P.render_terrain_u8(
-            xyuv, idx.reshape(-1, 3), np.zeros((1, 1), np.float32),
-            view, proj, **kw)
-        assert hits == ["strips"], f"VF_DENSE={dense}: routed {hits}"
-        assert img.shape == (120, 160, 4)
+    plan = P.plan_terrain(*args, backend="jnp", **kw)
+    assert plan.static["fill_rule"] == "hw"
+    assert plan.args[0].shape[0] == idx.size // 3 + 1
+    ref = P.render_terrain_u8(*args, backend="jnp", **kw)
+    got = P.render_terrain_u8(*args, backend="pallas", **kw)
+    assert ref.shape == (120, 160, 4)
+    np.testing.assert_array_equal(ref, got)
+    monkeypatch.setenv("VF_FILL_RULE", "inclusive")
+    assert not np.array_equal(ref, P.render_terrain_u8(*args, backend="jnp",
+                                                       **kw))

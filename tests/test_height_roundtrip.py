@@ -66,7 +66,7 @@ def test_roundtrip_various_sizes_exact(shape):
     r.upload_height_r32f()
     back = r.read_full_height_texture()
     assert back.shape == (h, w)
-    np.testing.assert_array_equal(back, hm)  # bit-exact on TPU path
+    np.testing.assert_array_equal(back, hm)  # bit-exact on the device path
 
 
 def test_add_terrain_validation_messages():

@@ -1,215 +1,53 @@
-"""Raster core unit tests: backends agree byte-exactly, winding/cull rules,
-binning determinism, sRGB curves. These are the TPU analog of the
-reference's cross-backend identity checks (python/tools/backends_runner.py).
-"""
-import hashlib
+"""Raster core unit tests: the Triton list kernel agrees byte-exactly with
+the jnp reference raster (tiles.py), winding/cull rules, binning
+determinism, sRGB curves. These are the analog of the reference's
+cross-backend identity checks (python/tools/backends_runner.py).
 
+Without a GPU the kernel runs through the Pallas interpreter (the
+``interpret_kernel`` fixture); ``test_list_kernel_compiled_matches_reference``
+runs it as Triton compiles it, on the card (``gpu`` marker).
+"""
 import numpy as np
 import pytest
 
 import vulkan_forge as vf
 from vulkan_forge._raster import pipeline
 
-from conftest import requires_tpu
+
+def _render(obj, backend):
+    """obj.render_rgba() with the raster stage forced: "jnp" (reference)
+    or "pallas" (the Triton kernel; through the Pallas interpreter under
+    the ``interpret_kernel`` fixture)."""
+    args, kwargs = obj._draw_args()
+    return pipeline.render_terrain_u8(*args, backend=backend, **kwargs)
 
 
-@requires_tpu
-def test_triangle_backends_identical():
+def test_triangle_backends_identical(interpret_kernel):
     a = pipeline.render_triangle_u8(96, 64, backend="jnp")
     b = pipeline.render_triangle_u8(96, 64, backend="pallas")
     np.testing.assert_array_equal(a, b)
 
 
-@requires_tpu
-def test_terrain_backends_identical(monkeypatch):
+def test_terrain_backends_identical(interpret_kernel):
     h = (np.outer(np.linspace(0, 1, 32), np.linspace(0, 1, 32))).astype(np.float32)
-    imgs = {}
-    for be in ("jnp", "pallas"):
-        monkeypatch.setenv("VF_BACKEND", be)
-        s = vf.Scene(160, 120, 32, "terrain")
-        s.set_height_from_r32f(h)
-        imgs[be] = s.render_rgba()
-    np.testing.assert_array_equal(imgs["jnp"], imgs["pallas"])
+    s = vf.Scene(160, 120, 32, "terrain")
+    s.set_height_from_r32f(h)
+    np.testing.assert_array_equal(_render(s, "jnp"), _render(s, "pallas"))
 
 
-@requires_tpu
-def test_segment_backend_identical(monkeypatch):
-    # Force the round-1 segment-walk kernel (tall-framebuffer fallback) on a
-    # small scene and compare byte-for-byte against the jnp oracle.
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 1)
-    monkeypatch.setattr(pipeline, "_strips_fit", lambda h: False)
-    monkeypatch.setenv("VF_BACKEND", "pallas")
-    s1 = vf.Scene(160, 120, 32, "viridis")
-    seg_img = s1.render_rgba()
-    monkeypatch.setenv("VF_BACKEND", "jnp")
-    s2 = vf.Scene(160, 120, 32, "viridis")
-    ref_img = s2.render_rgba()
-    np.testing.assert_array_equal(seg_img, ref_img)
-
-
-@requires_tpu
-def test_segment_backend_forced_column_major_identical(monkeypatch):
-    # Regression: the axis-adaptive (column-major) walk must gather each
-    # permuted stream position's record from its ORIGINAL row; a mismatch
-    # renders wrong triangles (round-1 advisor finding). Force the perm
-    # branch regardless of the work estimates and compare to the oracle.
-    # (_strips_fit is forced off so the tall-framebuffer segment fallback
-    # path stays covered now that strips is the default dense path.)
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 1)
-    monkeypatch.setattr(pipeline, "_strips_fit", lambda h: False)
-    monkeypatch.setattr(pipeline, "_segment_axis_estimate",
-                        lambda *a, **k: (np.float32(2.0), np.float32(1.0)))
-    monkeypatch.setenv("VF_BACKEND", "pallas")
-    h = (np.outer(np.sin(np.linspace(0, 3, 32)),
-                  np.cos(np.linspace(0, 2, 32)))).astype(np.float32)
-    s1 = vf.Scene(160, 120, 32, "magma")
-    s1.set_height_from_r32f(h)
-    seg_img = s1.render_rgba()
-    monkeypatch.setenv("VF_BACKEND", "jnp")
-    s2 = vf.Scene(160, 120, 32, "magma")
-    s2.set_height_from_r32f(h)
-    np.testing.assert_array_equal(seg_img, s2.render_rgba())
-
-
-@requires_tpu
-def test_strip_backend_identical(monkeypatch):
-    # The strip-walk kernel (round-2 dense-mesh default) must match the jnp
-    # oracle byte-for-byte through the Scene API.
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 1)
-    monkeypatch.setenv("VF_BACKEND", "pallas")
-    h = (np.outer(np.cos(np.linspace(0, 4, 32)),
-                  np.sin(np.linspace(0, 3, 32)))).astype(np.float32)
-    s1 = vf.Scene(160, 120, 32, "terrain")
-    s1.set_height_from_r32f(h)
-    strip_img = s1.render_rgba()
-    monkeypatch.setenv("VF_BACKEND", "jnp")
-    s2 = vf.Scene(160, 120, 32, "terrain")
-    s2.set_height_from_r32f(h)
-    np.testing.assert_array_equal(strip_img, s2.render_rgba())
-
-
-@requires_tpu
-def test_packed_backend_identical(monkeypatch):
-    # The packed-stream kernel (round-3 dense-mesh default, 128 B/tri)
-    # must match the jnp oracle byte-for-byte through the Scene API.
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 1)
-    monkeypatch.setenv("VF_DENSE", "packed")
-    monkeypatch.setenv("VF_BACKEND", "pallas")
-    h = (np.outer(np.cos(np.linspace(0, 4, 32)),
-                  np.sin(np.linspace(0, 3, 32)))).astype(np.float32)
-    s1 = vf.Scene(160, 120, 32, "terrain")
-    s1.set_height_from_r32f(h)
-    packed_img = s1.render_rgba()
-    monkeypatch.setenv("VF_BACKEND", "jnp")
-    s2 = vf.Scene(160, 120, 32, "terrain")
-    s2.set_height_from_r32f(h)
-    np.testing.assert_array_equal(packed_img, s2.render_rgba())
-
-
-@requires_tpu
-def test_hw_fill_rule_backends_identical(monkeypatch):
-    # VF_FILL_RULE=hw must produce identical pixels on the pallas backends
-    # (list kernel; strips for dense routes) and the jnp oracle.
+def test_hw_fill_rule_backends_identical(monkeypatch, interpret_kernel):
+    # VF_FILL_RULE=hw must produce identical pixels on the list kernel
+    # (records carry the bias columns) and the jnp oracle.
     h = (np.outer(np.sin(np.linspace(0, 2, 32)),
                   np.cos(np.linspace(0, 3, 32)))).astype(np.float32)
-    monkeypatch.setenv("VF_FILL_RULE", "hw")
-    imgs = {}
-    for be in ("jnp", "pallas"):
-        monkeypatch.setenv("VF_BACKEND", be)
-        s = vf.Scene(160, 120, 32, "viridis")
-        s.set_height_from_r32f(h)
-        imgs[be] = s.render_rgba()
-    np.testing.assert_array_equal(imgs["jnp"], imgs["pallas"])
-    # dense route (strips kernel carries the bias columns)
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 1)
-    monkeypatch.setenv("VF_BACKEND", "pallas")
     s = vf.Scene(160, 120, 32, "viridis")
     s.set_height_from_r32f(h)
-    np.testing.assert_array_equal(imgs["jnp"], s.render_rgba())
+    monkeypatch.setenv("VF_FILL_RULE", "hw")
+    ref = _render(s, "jnp")
+    np.testing.assert_array_equal(ref, _render(s, "pallas"))
     # and the rule actually differs from the shipped inclusive rule
     monkeypatch.setenv("VF_FILL_RULE", "inclusive")
-    monkeypatch.setenv("VF_BACKEND", "jnp")
-    monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", 200_000)
-    s2 = vf.Scene(160, 120, 32, "viridis")
-    s2.set_height_from_r32f(h)
-    assert not np.array_equal(imgs["jnp"], s2.render_rgba())
-
-
-@requires_tpu
-def test_strips_batch_matches_single():
-    # Batched strip path (one pallas_call for B frames) must equal B
-    # single-frame renders exactly.
-    import math
-    import jax
-    import jax.numpy as jnp
-    from vulkan_forge import _camera, _colormap, _mesh
-
-    GRID, W, H = 24, 256, 96
-    xyuv, idx = _mesh.build_grid_xyuv(GRID)
-    xyuv = jnp.asarray(xyuv)
-    indices = jnp.asarray(np.asarray(idx).astype(np.int32).reshape(-1, 3))
-    heights = jnp.zeros((1, 1), jnp.float32)
-    lut = jnp.asarray(_colormap.build_lut("viridis")[0])
-    sun = jnp.asarray(np.array([0.5, 1.0, 0.3], np.float32)
-                      / np.linalg.norm([0.5, 1.0, 0.3]))
-    views, projs = [], []
-    for i in range(2):
-        ang = 0.7 + i
-        views.append(_camera.look_at_rh(
-            (3 * math.cos(ang), 2.0, 3 * math.sin(ang)), (0, 0, 0), (0, 1, 0)))
-        projs.append(_camera.perspective_wgpu(
-            np.float32(math.radians(45.0)), np.float32(W / H),
-            np.float32(0.1), np.float32(100.0)))
-    views = jnp.asarray(np.stack(views))
-    projs = jnp.asarray(np.stack(projs))
-    com = (jnp.float32(-0.5), jnp.float32(0.5), jnp.float32(1.0), sun,
-           jnp.float32(1.0), jnp.float32(1.0))
-    rs = 2 * (GRID - 1)
-    batch = pipeline._terrain_render_batch_strips(
-        xyuv, indices, heights, views, projs, lut, *com, W, H, rs)
-    for i in range(2):
-        records, bbox = pipeline._terrain_records(
-            xyuv, indices, heights, views[i], projs[i], com[4], com[5], W, H)
-        single = pipeline._terrain_render_strips(
-            records, bbox, heights, lut, *com[:4], com[4], com[5], W, H, rs)
-        np.testing.assert_array_equal(np.asarray(batch[i]),
-                                      np.asarray(single))
-
-
-@requires_tpu
-def test_segment_exact_ids_identical():
-    # The split (hi, lo) painter compare used for T >= 2^24 must paint
-    # byte-identically to the single-f32-id path on any scene.
-    import jax
-    import jax.numpy as jnp
-    from vulkan_forge._raster import segments as seg
-    from vulkan_forge._raster import transform
-    from vulkan_forge._raster.setup import clip_to_fb, triangle_setup
-    from vulkan_forge import _mesh, _camera
-
-    xyuv, idx = _mesh.build_grid_xyuv(24)
-    xyuv = jnp.asarray(xyuv)
-    indices = jnp.asarray(np.asarray(idx).astype(np.int32).reshape(-1, 3))
-    heights = jnp.zeros((1, 1), jnp.float32)
-    view = jnp.asarray(_camera.look_at_rh((3, 2, 3), (0, 0, 0), (0, 1, 0)))
-    proj = jnp.asarray(_camera.perspective_wgpu(
-        np.float32(np.radians(45.0)), np.float32(160 / 120),
-        np.float32(0.1), np.float32(100.0)))
-    clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                          jnp.float32(1.0), jnp.float32(1.0))
-    x, y, _z, w = clip_to_fb(clip, 160, 120)
-    records, bbox = triangle_setup(x, y, _z, w, varyings, indices, 160, 120)
-    cap = 2048
-    crec, _ = seg.compact_valid(records, bbox, cap)
-    sb = seg.segment_bin(bbox, 160, 120, row_size=2 * 23)
-
-    outs = {}
-    for exact in (False, True):
-        outs[exact] = [np.asarray(a) for a in jax.jit(
-            lambda r, s: seg.render_gbuffer_segments(
-                r, s, 160, 120, exact_ids=exact))(crec, sb)]
-    for a, b in zip(outs[False], outs[True]):
-        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(ref, _render(s, "jnp"))
 
 
 def test_triangle_golden_properties():
@@ -252,10 +90,15 @@ def test_backface_culling():
     assert not bool(np.asarray(mask).any())
 
 
-@requires_tpu
+@pytest.mark.gpu
 def test_adjacent_triangles_no_cracks_no_overdraw_gaps():
     # Two triangles sharing a diagonal must cover every pixel of the quad
     # interior with no holes (watertightness along the shared edge).
+    # Device-dependent: the inclusive f32 rule evaluates the shared edge
+    # from a different anchor vertex in each triangle, so its rounding
+    # can leave both sides slightly negative. XLA:CPU cracks 38 diagonal
+    # pixels here; the exact top-left rule (VF_FILL_RULE=hw) is the
+    # watertight one on every device (test_fillrule.py).
     import jax.numpy as jnp
     from vulkan_forge._raster import tiles, transform
     from vulkan_forge._raster.setup import bin_triangles, clip_to_fb, triangle_setup
@@ -336,80 +179,15 @@ def test_lut_bilinear_vs_cpu_reference():
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
-@requires_tpu
-def test_segment_dma_alignment_adversarial():
-    """Adversarial cover for the segment kernel's DMA-start down-alignment
-    (segments.py seg_params): a PERMUTED stream whose per-row intervals
-    start at every alignment offset 0..7, with the stream's maximum
-    original ids sitting exactly at block boundaries, must still paint
-    byte-identically to the jnp oracle (re-read leading triangles are
-    rejected by coverage or idempotent under the max-id merge)."""
-    import jax
-    import jax.numpy as jnp
-    from vulkan_forge._raster import segments as seg
-    from vulkan_forge._raster import tiles
-    from vulkan_forge._raster.setup import (bin_triangles, clip_to_fb,
-                                            tile_counts, tile_span_max,
-                                            triangle_setup)
-
-    W, H = 256, 96
-    rng = np.random.default_rng(11)
-    n = 257                                   # odd: every alignment hit
-    centers = rng.uniform([-0.9, -0.9], [0.9, 0.9], (n, 2))
-    offs = rng.standard_normal((n, 3, 2)) * 0.15
-    v = (centers[:, None, :] + offs).reshape(-1, 2)
-    clip = np.concatenate([v, np.full((n * 3, 1), 0.4),
-                           np.ones((n * 3, 1))], axis=1).astype(np.float32)
-    attrs = np.stack([np.repeat(np.arange(n, dtype=np.float32), 3),
-                      rng.uniform(-2, 2, n * 3).astype(np.float32),
-                      rng.uniform(-2, 2, n * 3).astype(np.float32)], axis=1)
-    indices = np.arange(n * 3, dtype=np.int32).reshape(-1, 3)
-
-    x, y, z, w = clip_to_fb(jnp.asarray(clip), W, H)
-    records, bbox = triangle_setup(x, y, z, w, jnp.asarray(attrs),
-                                   jnp.asarray(indices), W, H)
-
-    # permute the stream so ids are shuffled across DMA blocks (duplicate
-    # max-id-at-block-edge shapes arise naturally from the shuffle)
-    perm = jnp.asarray(rng.permutation(n).astype(np.int32))
-    pbbox = bbox[perm]
-    cap = int(jax.device_get(jnp.sum(
-        (pbbox[:, 1] >= pbbox[:, 0]).astype(np.int32))))
-    cap = max(8, -(-cap // 8) * 8)
-    crecords, _ = seg.compact_valid(records, pbbox, cap, ids=perm)
-    sb = seg.segment_bin(pbbox, W, H, row_size=24)   # odd intervals
-    v0s, v1s, v2s, ms = seg.render_gbuffer_segments(crecords, sb, W, H)
-
-    c2 = int(jax.device_get(tile_counts(bbox, W, H).max()))
-    sx, sy = jax.device_get(tile_span_max(bbox, W, H))
-    binning = bin_triangles(bbox, W, H, max(-(-c2 // 8) * 8, 8),
-                            span_x=pipeline._round_span(int(sx)),
-                            span_y=pipeline._round_span(int(sy)))
-    o0, o1, o2, om = tiles.render_gbuffer(records, binning.tile_lists, W, H)
-
-    np.testing.assert_array_equal(np.asarray(ms), np.asarray(om))
-    both = np.asarray(om)
-    for a, b in ((v0s, o0), (v1s, o1), (v2s, o2)):
-        np.testing.assert_array_equal(
-            np.where(both, np.asarray(a), 0), np.where(both, np.asarray(b), 0))
-
-
-@requires_tpu
-def test_strips_extended_fs_matches_oracle(monkeypatch):
-    """Dense-path selection combined with the EXTENDED fragment pipeline
-    (Renderer.render_rgba's mode): force the strip walk on a small DEM and
-    byte-compare against the jnp oracle route."""
+def test_extended_fs_list_kernel_matches_oracle(interpret_kernel):
+    """The extended fragment pipeline (Renderer.render_rgba's mode) on the
+    list kernel byte-matches the jnp oracle route."""
     h = (np.outer(np.linspace(0, 1, 24), np.linspace(1, 0, 24)) * 30
          ).astype(np.float32)
-    imgs = {}
-    for be, thresh in (("pallas", 1), ("jnp", 10**9)):
-        monkeypatch.setattr(pipeline, "SEGMENT_THRESHOLD", thresh)
-        monkeypatch.setenv("VF_BACKEND", be)
-        r = vf.Renderer(160, 120)
-        r.add_terrain(h, (5.0, 5.0), 1.0, "magma")
-        r.set_sun(40.0, 210.0)
-        imgs[be] = r.render_rgba()
-    np.testing.assert_array_equal(imgs["pallas"], imgs["jnp"])
+    r = vf.Renderer(160, 120)
+    r.add_terrain(h, (5.0, 5.0), 1.0, "magma")
+    r.set_sun(40.0, 210.0)
+    np.testing.assert_array_equal(_render(r, "pallas"), _render(r, "jnp"))
 
 
 @pytest.mark.parametrize("wh", [(130, 57), (64, 100), (257, 9)])
@@ -472,21 +250,15 @@ def test_raster_odd_shapes_vs_bruteforce(wh):
                                    atol=1e-5)
 
 
-@requires_tpu
-def test_terrain_backends_identical_random_cameras(monkeypatch, seed):
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_terrain_backends_identical_random_cameras(seed, interpret_kernel):
     """Backend byte-identity under randomized cameras (fixed-camera tests
-    can hide angle-dependent kernel bugs; the round-1 segment-perm defect
-    was exactly such a case)."""
+    can hide angle-dependent kernel bugs)."""
     rng = np.random.default_rng(seed)
     eye = rng.uniform([-4, 0.5, -4], [4, 3.5, 4])
     tgt = rng.uniform([-0.4, -0.3, -0.4], [0.4, 0.3, 0.4])
     h = rng.standard_normal((32, 32)).astype(np.float32) * 0.2
-    imgs = {}
-    for be in ("jnp", "pallas"):
-        monkeypatch.setenv("VF_BACKEND", be)
-        s = vf.Scene(160, 120, 32, "magma")
-        s.set_height_from_r32f(h)
-        s.set_camera_look_at(tuple(eye), tuple(tgt), (0, 1, 0),
-                             50.0, 0.1, 100.0)
-        imgs[be] = s.render_rgba()
-    np.testing.assert_array_equal(imgs["jnp"], imgs["pallas"])
+    s = vf.Scene(160, 120, 32, "magma")
+    s.set_height_from_r32f(h)
+    s.set_camera_look_at(tuple(eye), tuple(tgt), (0, 1, 0), 50.0, 0.1, 100.0)
+    np.testing.assert_array_equal(_render(s, "jnp"), _render(s, "pallas"))

@@ -1,10 +1,11 @@
-"""vulkan-forge, rebuilt TPU-native.
+"""vulkan-forge, rebuilt in JAX.
 
 A headless, deterministic offscreen renderer with the same Python API as
-milos-agathon/vulkan-forge (python/vulkan_forge/__init__.py), re-designed for
-TPUs: the wgpu/WGSL render pipelines become tile-binned JAX/Pallas raster
-kernels, the Rust runtime becomes a C++ core + NumPy host layer, and
-"readback" is jax.device_get of an HBM-resident framebuffer.
+milos-agathon/vulkan-forge (python/vulkan_forge/__init__.py): the wgpu/WGSL
+render pipelines become a tile-binned software rasterizer in JAX (with a
+Pallas/Triton list-raster kernel on the GPU), the Rust runtime becomes a
+C++ core + NumPy host layer, and "readback" is jax.device_get of a
+device-resident framebuffer.
 
 Public API (parity: python/vulkan_forge/__init__.py:107-114,145-178):
 - Renderer(width, height), TerrainSpike, Scene
@@ -22,8 +23,8 @@ def _machine_fingerprint() -> str:
     """Short host-ISA fingerprint used to key the persistent compile cache.
 
     XLA:CPU AOT executables are machine-feature-specific: reusing a cache
-    directory across machine types triggers loader warnings and can SIGILL
-    (observed in MULTICHIP_r02.json's tail). Keying the cache subdirectory
+    directory across machine types triggers loader warnings and can SIGILL.
+    Keying the cache subdirectory
     by (arch, CPU feature flags) keeps each machine type's executables
     separate while still sharing across processes on the same host type.
     """
@@ -42,28 +43,37 @@ def _machine_fingerprint() -> str:
         "|".join(bits).encode()).hexdigest()[:10]
 
 
+def _compilation_cache_dir() -> "str | None":
+    """Where this package points JAX's persistent compilation cache.
+
+    None when VF_NO_CACHE is set, and when JAX_COMPILATION_CACHE_DIR is set
+    (JAX reads that variable itself). Otherwise a fixed directory inside
+    the checkout, keyed by the host's machine fingerprint -- a fixed path,
+    because the path is part of the cache key.
+    """
+    if _os.environ.get("VF_NO_CACHE") or _os.environ.get(
+            "JAX_COMPILATION_CACHE_DIR"):
+        return None
+    root = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+    return _os.path.join(root, ".jax_cache", _machine_fingerprint())
+
+
 def _init_compilation_cache() -> None:
     """Enable JAX's persistent compilation cache.
 
     Renders are jitted pipelines; caching compiled executables across
     processes turns the reference's "cold init" (wgpu device + shader
-    compile, ~100ms) analog -- XLA compilation, tens of seconds on a
-    remote-compile TPU -- into a one-time cost per (shape, capacity)
-    config. Override dir with VF_CACHE_DIR; disable with VF_NO_CACHE=1.
+    compile, ~100ms) analog -- XLA and Triton compilation, seconds -- into
+    a one-time cost per (shape, capacity) config. Disable with
+    VF_NO_CACHE=1.
     """
-    if _os.environ.get("VF_NO_CACHE"):
+    cache_dir = _compilation_cache_dir()
+    if cache_dir is None:
         return
-    try:
-        import jax
-        cache_dir = _os.environ.get(
-            "VF_CACHE_DIR",
-            _os.path.join(_os.path.expanduser("~"), ".cache", "vulkan_forge_jax",
-                          _machine_fingerprint()))
-        _os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    import jax
+    _os.makedirs(cache_dir, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
 _init_compilation_cache()

@@ -13,7 +13,7 @@ returned matrices are C-contiguous (4,4) float32 in row-major mathematical
 convention (src/camera.rs:94-112 converts glam's column-major storage the
 same way).
 
-This module is pure host math: it never touches the TPU. The renderer
+This module is pure host math: it never touches the device. The renderer
 consumes these matrices inside its jitted pipeline.
 """
 from __future__ import annotations

@@ -6,7 +6,7 @@ Parity targets:
   - ``to_linear_u8_rgba``: CPU sRGB->linear with the exact 2.4-gamma piecewise
     curve and +0.5 rounding (src/colormap/mod.rs:59-79).
   - LUT format selection: sRGB unless VF_FORCE_LUT_UNORM is set, mirroring
-    ColormapLUT::new (src/terrain/mod.rs:44-61). On TPU the "adapter" always
+    ColormapLUT::new (src/terrain/mod.rs:44-61). Here the "adapter" always
     supports sRGB sampling, so only the env var drives the fallback.
 
 The GPU 256x1 texture becomes a (256, 4) float32 *linear-space* table: the

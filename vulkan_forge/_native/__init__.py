@@ -1,9 +1,9 @@
 """Native (C++) runtime core bindings.
 
 The reference implements its runtime in native code (Rust: readback/unpad,
-mesh generation, DEM stats, PNG encode). The TPU rebuild keeps the compute
-path in JAX/XLA/Pallas and implements the host runtime hot paths in C++
-(cpp/vfcore.cpp), loaded through ctypes. Every entry point has a pure-NumPy
+mesh generation, DEM stats, PNG encode). This rebuild keeps the compute
+path in JAX/XLA/Pallas and implements two host hot paths, grid meshing
+and DEM stats, in C++ (cpp/vfcore.cpp), loaded through ctypes. Every entry point has a pure-NumPy
 fallback so the package works even without a C++ toolchain.
 
 Build happens lazily on first import (g++ -O3 -shared), cached next to the
@@ -38,10 +38,16 @@ def _build_and_load():
         if (not os.path.exists(lib_path)
                 or os.path.getmtime(lib_path) < os.path.getmtime(src)):
             cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                   "-std=c++17", src, "-o", lib_path, "-lz"]
+                   "-std=c++17", src, "-o", lib_path]
             subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         lib = ctypes.CDLL(lib_path)
-    except Exception:
+    except Exception as e:
+        detail = getattr(e, "stderr", None)
+        if isinstance(detail, bytes):
+            detail = detail.decode(errors="replace")
+        print(f"vulkan_forge: native core unavailable, using the NumPy "
+              f"fallbacks ({type(e).__name__}: {e})"
+              + (f"\n{detail.strip()}" if detail else ""), file=sys.stderr)
         return None
 
     lib.vf_grid_generate.restype = None
@@ -52,10 +58,6 @@ def _build_and_load():
     lib.vf_dem_stats.restype = None
     lib.vf_dem_stats.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
                                  ctypes.POINTER(ctypes.c_float)]
-    lib.vf_png_encode_rgba.restype = ctypes.c_int64
-    lib.vf_png_encode_rgba.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64]
     _LIB = lib
     return lib
 
@@ -93,19 +95,3 @@ def dem_stats_native(heights: np.ndarray):
                      h.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return float(out[0]), float(out[1]), float(out[2]), float(out[3])
 
-
-def png_encode_rgba(img: np.ndarray):
-    """PNG bytes via the C++ core (zlib), or None."""
-    lib = _build_and_load()
-    if lib is None:
-        return None
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[0], img.shape[1]
-    cap = img.nbytes + (h + 1) * 64 + 1024
-    out = np.empty(cap, dtype=np.uint8)
-    n = lib.vf_png_encode_rgba(
-        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, h,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap)
-    if n <= 0:
-        return None
-    return bytes(out[:n].tobytes())

@@ -1,10 +1,10 @@
 """Multi-device rendering: data parallelism over the frame/camera axis.
 
 The reference has no distributed code (SURVEY.md 2.4); its "backend
-parallelism" is alternative graphics APIs. The honest TPU scaling story for
-a renderer is embarrassingly parallel frames: shard a camera batch over a
-1-D device mesh with shard_map -- each chip rasterizes its own frames; the
-only cross-chip traffic is the optional gather of results (rides ICI).
+parallelism" is alternative graphics APIs. A renderer scales over devices
+by embarrassingly parallel frames: shard a camera batch over a 1-D device
+mesh with shard_map -- each device rasterizes its own frames through the
+batched list path; the only cross-device traffic is the gather of results.
 """
 from __future__ import annotations
 
@@ -30,11 +30,8 @@ def render_spike_frames(width: int, height: int, grid: int,
     """
     import jax
     import jax.numpy as jnp
+    from jax import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
 
     from . import _colormap, _formats, _mesh
     from ._camera import look_at_rh, perspective_wgpu
@@ -74,48 +71,30 @@ def render_spike_frames(width: int, height: int, grid: int,
     projs = np.broadcast_to(proj, (B + pad, 4, 4)).copy()
 
     mesh = Mesh(np.array(devs), ("frames",))
-    use_pallas = pipe.backend_name() == "pallas" and devs[0].platform == "tpu"
-    T = int(indices.shape[0])
+    use_pallas = (pipe.backend_name() == "pallas"
+                  and devs[0].platform == "gpu")
+    fill_rule = pipe.fill_rule_name()
+    views_j = jnp.asarray(views)
+    projs_j = jnp.asarray(projs)
+    # Shared static binning parameters from a prepass over all cameras.
+    capacity, span_x, span_y = pipe.batch_bin_params(
+        xyuv, indices, heights, views_j, projs_j, jnp.float32(g.spacing),
+        jnp.float32(g.exaggeration), width, height, fill_rule=fill_rule)
 
-    if (T > pipe.SEGMENT_THRESHOLD and pipe._strips_fit(height)
-            and T < (1 << 24)):
-        # Dense meshes (the grid=1024 flagship config): the packed-stream
-        # strip walk -- no capacity prepass, no data-dependent shapes, so
-        # it shards over the frame axis with zero host synchronization.
-        # CPU meshes run the jnp reference walker over the same stream.
-        row_size = 2 * (grid - 1)
-
-        def shard_fn(views_s, projs_s):
-            return pipe._terrain_render_batch_packed.__wrapped__(
-                xyuv, indices, heights, views_s, projs_s, lut,
-                jnp.float32(g.h_min), jnp.float32(g.h_max),
-                jnp.float32(g.exposure), sun,
-                jnp.float32(g.spacing), jnp.float32(g.exaggeration),
-                width, height, row_size,
-                fs_mode="shipped", use_pallas=use_pallas, grid_n=grid)
-    else:
-        # Shared static binning params from a prepass over all cameras.
-        cmax, sx, sy = jax.device_get(pipe._terrain_batch_counts(
-            xyuv, indices, heights, jnp.asarray(views), jnp.asarray(projs),
-            jnp.float32(g.spacing), jnp.float32(g.exaggeration), width, height))
-        capacity = pipe._round_capacity(int(cmax))
-        span_x = pipe._round_span(int(sx))
-        span_y = pipe._round_span(int(sy))
-
-        def shard_fn(views_s, projs_s):
-            return pipe._terrain_render_batch.__wrapped__(
-                xyuv, indices, heights, views_s, projs_s, lut,
-                jnp.float32(g.h_min), jnp.float32(g.h_max),
-                jnp.float32(g.exposure), sun,
-                jnp.float32(g.spacing), jnp.float32(g.exaggeration),
-                width, height, capacity, span_x, span_y,
-                fs_mode="shipped", use_pallas=use_pallas)
+    def shard_fn(views_s, projs_s):
+        return pipe._terrain_render_batch.__wrapped__(
+            xyuv, indices, heights, views_s, projs_s, lut,
+            jnp.float32(g.h_min), jnp.float32(g.h_max),
+            jnp.float32(g.exposure), sun,
+            jnp.float32(g.spacing), jnp.float32(g.exaggeration),
+            width, height, capacity, span_x, span_y,
+            fs_mode="shipped", use_pallas=use_pallas, fill_rule=fill_rule)
 
     sharded = shard_map(shard_fn, mesh=mesh,
                         in_specs=(P("frames"), P("frames")),
                         out_specs=P("frames"), check_vma=False)
     with mesh:
-        imgs_u32 = jax.jit(sharded)(jnp.asarray(views), jnp.asarray(projs))
+        imgs_u32 = jax.jit(sharded)(views_j, projs_j)
         imgs_u32 = jax.device_get(imgs_u32)
     return np.stack([_formats.u32_image_to_rgba_u8(f)
                      for f in imgs_u32[:B]])

@@ -18,11 +18,9 @@ matching the Filtering sampler on the 256x1 texture
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from .._formats import pack_rgba_u32, srgb_encode
-from .transform import analytic_height
 
 
 def sample_lut_bilinear(lut: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:
@@ -68,84 +66,6 @@ def terrain_fs(h, x, z, mask, lut, h_range, exposure, sun_dir):
     srgb = srgb_encode(rgb)
     one = jnp.ones_like(srgb[..., 0])
     return pack_rgba_u32(srgb[..., 0], srgb[..., 1], srgb[..., 2], one)
-
-
-def pack_lut_tile(lut):
-    """Pack the (256, 4) linear LUT into the (8, 128) VMEM tile
-    ``terrain_fs_tile`` reads: row c*2 + hi holds channel c's texels
-    [hi*128, hi*128 + 128). Rows 6-7 are padding (full 8-sublane tile)."""
-    lutp = lut[:, :3].T.reshape(3, 2, 128).reshape(6, 128)
-    return jnp.pad(lutp, ((0, 2), (0, 0)))
-
-
-def terrain_fs_tile(hh, xx, zz, cov, lutv, hr2, exposure, l0, l1, l2):
-    """Shipped terrain FS over one (rows, 128) tile, Mosaic-legal: the
-    in-KERNEL flavor of ``terrain_fs`` for pallas backends that shade at
-    resolve time instead of materializing g-buffer planes for an XLA
-    epilogue (vtx.py round-5 fusion).
-
-    Bit-identical to ``terrain_fs`` by construction on TPU: every op here
-    lowers to the same implementation XLA uses -- measured by
-    scripts/exp_fs_ops.py: sin/cos/sqrt/pow/exp/log are bit-exact between
-    Mosaic and XLA, while ``1.0/jnp.sqrt`` is NOT (XLA rewrites it to
-    rsqrt), so this uses ``jax.lax.rsqrt`` explicitly. The LUT gather
-    (Mosaic has no per-lane gather) runs as a 256-step select-accumulate
-    against scalar reads of the packed LUT tile: i0/i1 are integer-valued
-    f32, so f32 equality selects exactly the texels ``lut[i0]``/``lut[i1]``
-    would gather. sRGB + u32 pack are inlined from _formats with the same
-    literals and op order.
-
-    Args: hh/xx/zz = perspective-divided varyings (height, world x, world
-    z), cov = coverage bool, all (rows, 128); lutv = the loaded
-    ``pack_lut_tile`` value; hr2 = 2*max(h_range, 1e-8), exposure, and
-    l0/l1/l2 = normalized sun direction -- traced scalars the CALLER must
-    compute in XLA with the exact ops ``terrain_fs`` uses (see
-    vtx.render_image_vtx_batch). Returns (rows, 128) uint32 RGBA words.
-    """
-    t = jnp.clip(0.5 + hh / hr2, 0.0, 1.0)
-    xf = t * 256.0 - 0.5
-    x0 = jnp.floor(xf)
-    frac = xf - x0
-    i0f = jnp.clip(x0, 0.0, 255.0)
-    i1f = jnp.clip(x0 + 1.0, 0.0, 255.0)
-
-    zro = jnp.zeros_like(hh)
-    c0 = [zro, zro, zro]
-    c1 = [zro, zro, zro]
-    for e in range(256):
-        hi, ln = divmod(e, 128)
-        ef = jnp.float32(e)
-        m0 = i0f == ef
-        m1 = i1f == ef
-        for c in range(3):
-            tex = lutv[c * 2 + hi, ln]
-            c0[c] = jnp.where(m0, tex, c0[c])
-            c1[c] = jnp.where(m1, tex, c1[c])
-
-    # Analytic-derivative normal + Lambert (terrain_fs lines, same order).
-    dhdx = 1.3 * jnp.cos(xx * 1.3) * 0.25
-    dhdz = -1.1 * jnp.sin(zz * 1.1) * 0.25
-    inv_len = jax.lax.rsqrt(dhdx * dhdx + 1.0 + dhdz * dhdz)
-    lambert = jnp.clip((-dhdx * l0 + l1 - dhdz * l2) * inv_len, 0.0, 1.0)
-    shade = 0.15 + 0.85 * lambert
-
-    # Pack in int32 (Mosaic has no f32 -> u32 cast); the caller bitcasts
-    # the plane to uint32 -- the BITS equal pack_rgba_u32's, including
-    # alpha = 255 (0xFF000000 == int32 -16777216).
-    word = jnp.zeros(hh.shape, jnp.int32)
-    for c, clear in ((0, 0.02), (1, 0.02), (2, 0.03)):
-        lin = c0[c] * (1.0 - frac) + c1[c] * frac
-        v = lin * exposure * shade
-        v = jnp.where(cov, v, jnp.float32(clear))
-        # srgb_encode + pack_rgba_u32 inlined (_formats.py:53-79).
-        v = jnp.clip(v, 0.0, 1.0)
-        lo = v * 12.92
-        hi_ = 1.055 * jnp.power(jnp.maximum(v, 1e-12), 1.0 / 2.4) - 0.055
-        s = jnp.where(v <= 0.0031308, lo, hi_)
-        u8 = (jnp.floor(jnp.clip(s, 0.0, 1.0) * 255.0 + 0.5)
-              .astype(jnp.int32))
-        word = word | (u8 << (8 * c))
-    return word | jnp.int32(-16777216)                   # alpha = 255
 
 
 def terrain_fs_extended(h, u, v, mask, lut, heights, h_min, h_max, exposure,

@@ -1,20 +1,26 @@
-"""Fused Pallas TPU raster kernel.
+"""List-raster kernel: Pallas through Triton, for the GPU.
 
-One grid step rasterizes one (TILE_H, TILE_W) framebuffer tile. The inner
-loop is fully vectorized for the VPU: triangles ride the SUBLANE axis
-(8 per chunk) and pixels the LANE axis (128 per row), so every edge/interp
-op is a dense (rows, 8, 128) vector op with zero scalar extracts -- the
-TPU-native replacement for a GPU's per-primitive scan converter.
+The GPU form of a tiled sort-middle software rasterizer (Laine & Karras,
+HPG 2011): triangles are binned per screen tile (``setup.bin_triangles``),
+and one program per tile walks its id-sorted list.
 
-Painter's order (no depth buffer; last == max triangle id wins,
-src/terrain/pipeline.rs:133) makes the winner a pure MAX reduction:
-each sublane accumulates its own running winner (ids are ascending within a
-sublane, so select-overwrite is exact), and a final cross-sublane max +
-one-hot select resolves the tile. No atomics, no sorts: byte-deterministic.
+- Grid (B * NTY, NTX): one program per (TILE_H, TILE_W) = (8, 128) tile of
+  one frame, 1024 pixels on 4 warps, 8 pixels per thread. Frames ride the
+  first grid axis (frame = program_id(0) // NTY).
+- The loop runs to the tile's exact binned count, not to the list
+  capacity.
+- Records are read by id straight from ``records``: one scalar load per
+  live column of the (REC_WIDTH,)-float row (31 columns, 34 under the hw
+  fill rule). Every thread of the program reads the same 136-byte span,
+  so the loads are broadcasts served by L1. No (tiles, capacity,
+  REC_WIDTH) gather is materialized, and the record layout is the one
+  ``setup.triangle_setup`` writes.
+- Painter's order: lists are id-ascending, so "last (= max id) wins" is an
+  in-order overwrite of the per-pixel accumulators held in registers.
 
-Determinism: fixed-trip fori_loop, select/max ops only -- device output is
-byte-stable run to run (the property the reference pins with SHA-256 tests,
-tests/test_determinism.py).
+The arithmetic is ``tiles._raster_tile``'s, op for op: ``tiles`` is the
+plain reference. ``interpret=True`` runs the kernel through the Pallas
+interpreter for tests on a machine without a GPU; nothing else selects it.
 """
 from __future__ import annotations
 
@@ -23,197 +29,116 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from .setup import REC_WIDTH, TILE_H, TILE_W
+from .setup import BIAS2_COL, NUM_COLS, REC_WIDTH, TILE_H, TILE_W
 
-_CHUNK = 8  # triangles per inner-loop iteration (sublane width)
+_NUM_WARPS = 4
 
 
-def _kernel(counts_ref, recs_ref, v0_ref, v1_ref, v2_ref, mask_ref, *,
-            tile_h, tile_w, nty, fill_rule="inclusive"):
+def _kernel(counts_ref, lists_ref, recs_ref, v0_ref, v1_ref, v2_ref, mask_ref,
+            *, tile_h, tile_w, nty, ntx, trec, capacity, fill_rule):
     ty = pl.program_id(0)
     tx = pl.program_id(1)
-    # Batched frames ride the first grid axis: frame = ty // nty. Pixel
-    # coordinates use the frame-local tile row.
-    ty_local = jax.lax.rem(ty, nty)
+    frame = ty // nty
+    ty_local = ty - frame * nty
+    tile = ty * ntx + tx               # flat (frame, tile_y, tile_x) index
+    count = jnp.minimum(counts_ref[tile], capacity)
+    row0 = frame * trec                # this frame's first record row
 
-    C = recs_ref.shape[2]
-    R, L = tile_h, tile_w
-    # This tile's actual triangle count: the loop runs ceil(count/8) chunks
-    # instead of the worst-case capacity -- per-tile work tracks the real
-    # binning density (mean count is typically ~5% of max capacity).
-    count = counts_ref[ty * pl.num_programs(1) + tx]
-    n_chunks = jnp.minimum((count + _CHUNK - 1) // _CHUNK, C // _CHUNK)
+    px = (jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 1)
+          + tx * tile_w).astype(jnp.float32) + 0.5
+    py = (jax.lax.broadcasted_iota(jnp.int32, (tile_h, tile_w), 0)
+          + ty_local * tile_h).astype(jnp.float32) + 0.5
+    ncols = BIAS2_COL + 1 if fill_rule == "hw" else NUM_COLS
 
-    px = (jax.lax.broadcasted_iota(jnp.int32, (1, 1, L), 2).astype(jnp.float32)
-          + (tx * tile_w).astype(jnp.float32) + 0.5)          # (1,1,L)
-    py = (jax.lax.broadcasted_iota(jnp.int32, (R, 1, 1), 0).astype(jnp.float32)
-          + (ty_local * tile_h).astype(jnp.float32) + 0.5)    # (R,1,1)
-
-    zero = jnp.zeros((R, _CHUNK, L), jnp.float32)
-    neg1 = jnp.full((R, _CHUNK, L), -1.0, jnp.float32)
-
-    def body(chunk, state):
-        acc_id, acc0, acc1, acc2, accw = state
-        c0 = chunk * _CHUNK
-        rec = recs_ref[0, 0, pl.ds(c0, _CHUNK), :]             # (8, 32)
-
-        def col(k):
-            return rec[:, k].reshape(1, _CHUNK, 1)             # (1,8,1)
-
-        dpx0 = px - col(0)
-        dpy0 = py - col(1)
-        f0 = col(2) * dpx0 - col(3) * dpy0
-        f1 = col(6) * (px - col(4)) - col(7) * (py - col(5))
-        f2 = col(10) * (px - col(8)) - col(11) * (py - col(9))
-
-        a0 = f0 * col(12) + f1 * col(13) + f2 * col(14)
-        a1 = f0 * col(15) + f1 * col(16) + f2 * col(17)
-        a2 = f0 * col(18) + f1 * col(19) + f2 * col(20)
-        aw = f0 * col(21) + f1 * col(22) + f2 * col(23)
+    def body(i, state):
+        acc0, acc1, acc2, accw, covered = state
+        row = row0 + lists_ref[tile, i]
+        r = [recs_ref[row, k] for k in range(ncols)]
+        f0 = r[2] * (px - r[0]) - r[3] * (py - r[1])
+        f1 = r[6] * (px - r[4]) - r[7] * (py - r[5])
+        f2 = r[10] * (px - r[8]) - r[11] * (py - r[9])
+        a0 = f0 * r[12] + f1 * r[13] + f2 * r[14]
+        a1 = f0 * r[15] + f1 * r[16] + f2 * r[17]
+        a2 = f0 * r[18] + f1 * r[19] + f2 * r[20]
+        aw = f0 * r[21] + f1 * r[22] + f2 * r[23]
         # Clip-volume tests (setup.py "Near-plane clipping").
-        az = f0 * col(25) + f1 * col(26) + f2 * col(27)
-        asum = f0 * col(28) + f1 * col(29) + f2 * col(30)
+        az = f0 * r[25] + f1 * r[26] + f2 * r[27]
+        asum = f0 * r[28] + f1 * r[29] + f2 * r[30]
         if fill_rule == "hw":
             # Top-left rule: per-edge thresholds (setup.py BIAS*_COL).
-            edges = (f0 >= col(31)) & (f1 >= col(32)) & (f2 >= col(33))
+            edges = (f0 >= r[31]) & (f1 >= r[32]) & (f2 >= r[33])
         else:
             edges = (f0 >= 0.0) & (f1 >= 0.0) & (f2 >= 0.0)
-        cov = (edges & (col(24) > 0.0)
+        cov = (edges & (r[24] > 0.0)
                & (az >= 0.0) & (aw > 0.0) & (asum - az >= 0.0))
+        return (jnp.where(cov, a0, acc0), jnp.where(cov, a1, acc1),
+                jnp.where(cov, a2, acc2), jnp.where(cov, aw, accw),
+                covered | cov)
 
-        # Triangle ids as f32 (exact below 2^24): sublane s in this chunk
-        # holds id c0+s; ids ascend within each sublane across chunks.
-        ids = (jax.lax.broadcasted_iota(jnp.int32, (1, _CHUNK, 1), 1)
-               .astype(jnp.float32) + jnp.float32(1.0) * (c0).astype(jnp.float32))
+    zero = jnp.zeros((tile_h, tile_w), jnp.float32)
+    init = (zero, zero, zero, jnp.ones((tile_h, tile_w), jnp.float32),
+            jnp.zeros((tile_h, tile_w), jnp.bool_))
+    acc0, acc1, acc2, accw, covered = jax.lax.fori_loop(0, count, body, init)
 
-        return (jnp.where(cov, ids, acc_id), jnp.where(cov, a0, acc0),
-                jnp.where(cov, a1, acc1), jnp.where(cov, a2, acc2),
-                jnp.where(cov, aw, accw))
-
-    init = (neg1, zero, zero, zero, jnp.ones((R, _CHUNK, L), jnp.float32))
-    acc_id, acc0, acc1, acc2, accw = jax.lax.fori_loop(0, n_chunks, body, init)
-
-    # Cross-sublane painter resolve: winner = max id; one-hot select of the
-    # winning sublane's accumulators (each id lives in exactly one sublane).
-    winner = jnp.max(acc_id, axis=1, keepdims=True)            # (R,1,L)
-    sel = (acc_id == winner)                                    # one-hot (R,8,L)
-    selF = sel.astype(jnp.float32)
-    covered = winner[:, 0, :] >= 0.0                           # (R,L)
-    # For uncovered pixels all sublanes match id=-1; normalize by the count.
-    norm = 1.0 / jnp.sum(selF, axis=1)                         # (R,L)
-    a0 = jnp.sum(acc0 * selF, axis=1) * norm
-    a1 = jnp.sum(acc1 * selF, axis=1) * norm
-    a2 = jnp.sum(acc2 * selF, axis=1) * norm
-    aw = jnp.sum(accw * selF, axis=1) * norm
-
-    rcp = 1.0 / jnp.where(jnp.abs(aw) < 1e-20, 1.0, aw)
-    v0_ref[...] = a0 * rcp
-    v1_ref[...] = a1 * rcp
-    v2_ref[...] = a2 * rcp
+    rcp = 1.0 / jnp.where(jnp.abs(accw) < 1e-20, 1.0, accw)
+    v0_ref[...] = acc0 * rcp
+    v1_ref[...] = acc1 * rcp
+    v2_ref[...] = acc2 * rcp
     mask_ref[...] = covered.astype(jnp.float32)
-
-
-def render_gbuffer(records: jnp.ndarray, tile_lists: jnp.ndarray,
-                   width: int, height: int,
-                   tile_h: int = TILE_H, tile_w: int = TILE_W,
-                   counts: "jnp.ndarray | None" = None,
-                   fill_rule: str = "inclusive"):
-    """Pallas G-buffer raster. Same contract as tiles.render_gbuffer."""
-    nty = -(-height // tile_h)
-    ntx = -(-width // tile_w)
-    capacity = tile_lists.shape[1]
-    assert capacity % _CHUNK == 0, "capacity must be a multiple of 8"
-
-    # Per-tile record blocks gathered in XLA (fast minor-dim row gather);
-    # the kernel streams one (C, 32) block per tile HBM->VMEM.
-    tile_recs = records[tile_lists].reshape(nty, ntx, capacity, REC_WIDTH)
-    # The in-kernel ids are list positions, not original triangle ids: lists
-    # are id-sorted, so the max-position winner IS the max-id winner.
-    if counts is None:
-        # Derive counts from the sentinel id (= records rows - 1) if the
-        # caller didn't pass the binning counts.
-        sentinel = records.shape[0] - 1
-        counts = jnp.sum((tile_lists != sentinel).astype(jnp.int32), axis=1)
-    counts = counts.astype(jnp.int32).reshape(-1)
-
-    out_shape = jax.ShapeDtypeStruct((nty * tile_h, ntx * tile_w), jnp.float32)
-    kernel = functools.partial(_kernel, tile_h=tile_h, tile_w=tile_w, nty=nty,
-                               fill_rule=fill_rule)
-
-    flops_per_px_tri = 44
-    cost = pl.CostEstimate(
-        flops=flops_per_px_tri * nty * ntx * tile_h * tile_w * capacity,
-        bytes_accessed=tile_recs.size * 4 + 4 * nty * ntx * tile_h * tile_w * 4,
-        transcendentals=0,
-    )
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nty, ntx),
-        in_specs=[pl.BlockSpec((1, 1, capacity, REC_WIDTH),
-                               lambda ty, tx, *pref: (ty, tx, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=tuple(
-            pl.BlockSpec((tile_h, tile_w), lambda ty, tx, *pref: (ty, tx),
-                         memory_space=pltpu.VMEM) for _ in range(4)),
-    )
-
-    v0, v1, v2, mask = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=(out_shape, out_shape, out_shape, out_shape),
-        cost_estimate=cost,
-    )(counts, tile_recs)
-
-    return (v0[:height, :width], v1[:height, :width], v2[:height, :width],
-            mask[:height, :width] > 0.5)
 
 
 def render_gbuffer_batch(records_b: jnp.ndarray, tile_lists_b: jnp.ndarray,
                          counts_b: jnp.ndarray, width: int, height: int,
-                         tile_h: int = TILE_H, tile_w: int = TILE_W):
-    """Batched raster: B frames in ONE pallas_call (grid (B*NTY, NTX)).
+                         tile_h: int = TILE_H, tile_w: int = TILE_W,
+                         fill_rule: str = "inclusive",
+                         interpret: bool = False):
+    """B frames in one kernel launch.
 
-    vmap of pallas_call serializes poorly; flattening the frame axis into
-    the grid keeps one kernel stream and one record gather.
-    records_b: (B, T+1, REC_WIDTH); tile_lists_b: (B, NT, C);
-    counts_b: (B, NT). Returns (var0, var1, var2, mask), each (B, H, W).
+    records_b: (B, T+1, REC_WIDTH); tile_lists_b: (B, NT, C) frame-local
+    ids; counts_b: (B, NT) exact per-tile counts. Returns (var0, var1,
+    var2, mask), each (B, H, W), with ``tiles.render_gbuffer``'s contract.
     """
-    B, trec, _ = records_b.shape
+    B, trec, rec_width = records_b.shape
+    assert rec_width == REC_WIDTH
     nty = -(-height // tile_h)
     ntx = -(-width // tile_w)
     capacity = tile_lists_b.shape[2]
-    assert capacity % _CHUNK == 0
 
-    flat_records = records_b.reshape(B * trec, REC_WIDTH)
-    offs = (jnp.arange(B, dtype=jnp.int32) * trec)[:, None, None]
-    flat_lists = (tile_lists_b + offs).reshape(B * nty * ntx, capacity)
-    tile_recs = flat_records[flat_lists].reshape(B * nty, ntx, capacity, REC_WIDTH)
-    counts = counts_b.astype(jnp.int32).reshape(-1)
-
-    out_shape = jax.ShapeDtypeStruct((B * nty * tile_h, ntx * tile_w), jnp.float32)
-    kernel = functools.partial(_kernel, tile_h=tile_h, tile_w=tile_w, nty=nty)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(B * nty, ntx),
-        in_specs=[pl.BlockSpec((1, 1, capacity, REC_WIDTH),
-                               lambda ty, tx, *pref: (ty, tx, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=tuple(
-            pl.BlockSpec((tile_h, tile_w), lambda ty, tx, *pref: (ty, tx),
-                         memory_space=pltpu.VMEM) for _ in range(4)),
-    )
-
+    kernel = functools.partial(
+        _kernel, tile_h=tile_h, tile_w=tile_w, nty=nty, ntx=ntx, trec=trec,
+        capacity=capacity, fill_rule=fill_rule)
+    out_shape = jax.ShapeDtypeStruct((B * nty * tile_h, ntx * tile_w),
+                                     jnp.float32)
+    out_spec = pl.BlockSpec((tile_h, tile_w), lambda i, j: (i, j))
     v0, v1, v2, mask = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=(out_shape, out_shape, out_shape, out_shape),
-    )(counts, tile_recs)
+        out_shape=(out_shape,) * 4,
+        grid=(B * nty, ntx),
+        out_specs=(out_spec,) * 4,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="list_raster",
+    )(counts_b.astype(jnp.int32).reshape(B * nty * ntx),
+      tile_lists_b.astype(jnp.int32).reshape(B * nty * ntx, capacity),
+      records_b.reshape(B * trec, REC_WIDTH))
 
     def crop(a):
         return a.reshape(B, nty * tile_h, ntx * tile_w)[:, :height, :width]
 
     return crop(v0), crop(v1), crop(v2), crop(mask) > 0.5
+
+
+def render_gbuffer(records: jnp.ndarray, tile_lists: jnp.ndarray,
+                   counts: jnp.ndarray, width: int, height: int,
+                   tile_h: int = TILE_H, tile_w: int = TILE_W,
+                   fill_rule: str = "inclusive", interpret: bool = False):
+    """One frame; same contract as ``tiles.render_gbuffer`` plus the exact
+    per-tile ``counts`` from ``setup.bin_triangles``."""
+    out = render_gbuffer_batch(records[None], tile_lists[None], counts[None],
+                               width, height, tile_h, tile_w,
+                               fill_rule=fill_rule, interpret=interpret)
+    return tuple(a[0] for a in out)

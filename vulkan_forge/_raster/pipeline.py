@@ -1,8 +1,14 @@
-"""End-to-end jitted render pipelines.
+"""End-to-end jitted render pipelines (the list path).
 
 The reference's encoder/submit/poll/readback dance (src/lib.rs:685-721,
 src/terrain/mod.rs:409-491) collapses to ONE jitted function per pipeline:
 ``u32_image = render(scene arrays)``; "readback" is ``jax.device_get``.
+
+Every render is a tiled sort-middle raster: vertex stage (transform.py),
+triangle setup and per-tile binning (setup.py), the list raster to a
+g-buffer, and an XLA-fused fragment epilogue (fragment.py). The raster
+stage is the Triton list kernel (pallas_backend.py) on a GPU and the
+plain jnp reference (tiles.py) elsewhere; both give the same pixels.
 
 Per-tile triangle capacity is data-dependent (it is the only dynamic
 quantity in the whole pipeline), so rendering is two-phase:
@@ -15,31 +21,45 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from .. import _formats
-from . import fragment, tiles, transform
-from .setup import (TILE_H, TILE_W, bin_triangles, clip_to_fb, setup_cols,
-                    tile_counts, tile_span_max, triangle_setup)
+from . import fragment, pallas_backend, tiles, transform
+from .setup import (TILE_H, TILE_W, bin_triangles, clip_to_fb, tile_counts,
+                    tile_span_max, triangle_setup)
 
 
 def backend_name() -> str:
-    """Raster backend: VF_BACKEND in {auto, jnp, pallas}; auto => pallas on TPU.
+    """Raster stage: VF_BACKEND in {auto, jnp, pallas}.
 
-    Both backends produce identical pixels (the Pallas kernel implements the
-    exact same math as the jnp tile loop); pallas is the fast path on TPU.
+    auto => "pallas" (the Triton list kernel) when JAX's default device is
+    a GPU, "jnp" (the plain reference) otherwise. "pallas" elsewhere than
+    on a GPU raises: the kernel is compiled by Triton and is never run
+    through the Pallas interpreter behind the caller's back.
     """
+    from .._device import default_platform
     b = os.environ.get("VF_BACKEND", "auto").lower()
     if b not in ("auto", "jnp", "pallas"):
         b = "auto"
+    platform = default_platform()
     if b == "auto":
-        from .._device import default_platform
-        return "pallas" if default_platform() == "tpu" else "jnp"
+        return "pallas" if platform == "gpu" else "jnp"
+    if b == "pallas" and platform != "gpu":
+        raise RuntimeError(
+            f"VF_BACKEND=pallas needs a GPU (the list raster kernel is "
+            f"compiled by Triton); JAX's default platform is {platform!r}")
     return b
+
+
+def fill_rule_name() -> str:
+    """VF_FILL_RULE in {inclusive, hw}: the shipped all-edges-inclusive
+    rule, or the hardware 8.8-snap top-left rule (setup.py)."""
+    rule = os.environ.get("VF_FILL_RULE", "inclusive")
+    return rule if rule in ("inclusive", "hw") else "inclusive"
 
 
 def _round_capacity(n: int) -> int:
@@ -56,14 +76,15 @@ def _round_span(n: int) -> int:
     return c
 
 
-# Above this triangle count the draw-order streaming kernels beat the
-# list kernel (whose (T, NT) overlap-matrix binning dominates its frame
-# cost: 15.7 of 23.6 ms/frame at grid=128, honest sum-forced round-3
-# measurement). The packed-stream walk measured 1.7x faster than the
-# list path already at 32K triangles (13.6 vs 23.6 ms/frame at 800x600
-# b8), so the threshold sits well below it; small scenes keep the list
-# path whose capacity gather is cheap there.
-SEGMENT_THRESHOLD = 20_000
+def _raster(records, tile_lists, counts, width, height, use_pallas,
+            fill_rule, tile_h=TILE_H, tile_w=TILE_W):
+    """The raster stage of one frame: (var0, var1, var2, mask) planes."""
+    if use_pallas:
+        return pallas_backend.render_gbuffer(
+            records, tile_lists, counts, width, height, tile_h, tile_w,
+            fill_rule=fill_rule)
+    return tiles.render_gbuffer(records, tile_lists, width, height, tile_h,
+                                tile_w, fill_rule=fill_rule)
 
 
 @functools.partial(jax.jit, static_argnames=("width", "height", "tile_h", "tile_w"))
@@ -73,16 +94,11 @@ def _bin_stats(bbox, width, height, tile_h=TILE_H, tile_w=TILE_W):
     return counts.max(), sx, sy
 
 
-@jax.jit
-def _valid_count(bbox):
-    return jnp.sum((bbox[:, 1] >= bbox[:, 0]).astype(jnp.int32))
-
-
 # Ratchet cache for the list path's static binning parameters: capacities
 # only ever grow per (T, W, H), so a camera orbit reuses one compiled
 # executable instead of recompiling every time the per-tile max crosses a
 # pow2 bucket (rendering with a larger-than-needed capacity is correct --
-# lists pad with the sentinel id and the kernel loops by actual counts).
+# lists pad with the sentinel id and the raster loops by actual counts).
 _BIN_PARAM_RATCHET: dict = {}
 
 
@@ -103,17 +119,34 @@ def _static_bin_params(bbox, width, height):
 
 # ---------------- terrain ----------------
 
-@functools.partial(jax.jit, static_argnames=("width", "height", "tile_h",
-                                             "tile_w", "fill_rule"))
+def _terrain_vertex_stage(xyuv, heights, view, proj, spacing, exaggeration,
+                          fs_mode):
+    if fs_mode == "shipped":
+        return transform.terrain_vs(xyuv, heights, view, proj, spacing,
+                                    exaggeration)
+    return transform.terrain_vs_extended(xyuv, heights, view, proj, spacing,
+                                         exaggeration)
+
+
+def _terrain_fs(v0, v1, v2, mask, heights, lut, h_min, h_max, exposure,
+                sun_dir, nspacing, exaggeration, fs_mode):
+    if fs_mode == "shipped":
+        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_max - h_min,
+                                   exposure, sun_dir)
+    return fragment.terrain_fs_extended(v0, v1, v2, mask, lut, heights,
+                                        h_min, h_max, exposure, sun_dir,
+                                        nspacing, exaggeration)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "height", "fs_mode",
+                                             "fill_rule"))
 def _terrain_records(xyuv, indices, heights, view, proj, spacing, exaggeration,
-                     width, height, tile_h=TILE_H, tile_w=TILE_W,
-                     fill_rule="inclusive"):
-    clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                          spacing, exaggeration)
-    x, y, _z, w = clip_to_fb(clip, width, height)
-    records, bbox = triangle_setup(x, y, _z, w, varyings, indices,
-                                   width, height, fill_rule=fill_rule)
-    return records, bbox
+                     width, height, fs_mode="shipped", fill_rule="inclusive"):
+    clip, varyings = _terrain_vertex_stage(xyuv, heights, view, proj, spacing,
+                                           exaggeration, fs_mode)
+    x, y, z, w = clip_to_fb(clip, width, height)
+    return triangle_setup(x, y, z, w, varyings, indices, width, height,
+                          fill_rule=fill_rule)
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -127,607 +160,69 @@ def _terrain_render_from_records(records, bbox, heights, lut, h_min, h_max,
                                  fill_rule="inclusive"):
     binning = bin_triangles(bbox, width, height, capacity, tile_h, tile_w,
                             span_x=span_x, span_y=span_y)
-    if use_pallas:
-        from . import pallas_backend
-        v0, v1, v2, mask = pallas_backend.render_gbuffer(
-            records, binning.tile_lists, width, height, tile_h, tile_w,
-            counts=binning.counts, fill_rule=fill_rule)
-    else:
-        v0, v1, v2, mask = tiles.render_gbuffer(
-            records, binning.tile_lists, width, height, tile_h, tile_w,
-            fill_rule=fill_rule)
-    if fs_mode == "shipped":
-        h_range = h_max - h_min
-        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure, sun_dir)
-    return fragment.terrain_fs_extended(v0, v1, v2, mask, lut, heights,
-                                        h_min, h_max, exposure, sun_dir,
-                                        spacing, exaggeration)
+    v0, v1, v2, mask = _raster(records, binning.tile_lists, binning.counts,
+                               width, height, use_pallas, fill_rule,
+                               tile_h, tile_w)
+    return _terrain_fs(v0, v1, v2, mask, heights, lut, h_min, h_max, exposure,
+                       sun_dir, spacing, exaggeration, fs_mode)
 
 
-@functools.lru_cache(maxsize=32)
-def _column_major_perm(cells_rows: int, cells_cols: int):
-    """Stream order that walks a grid mesh column by column.
-
-    perm[j] = original triangle id of stream position j; original ids are
-    row-major with 2 triangles per cell ((r*cols + c)*2 + k). The painter
-    rule reads ORIGINAL ids from the records (segments.ID_COL), so any walk
-    order paints identically.
-    """
-    r = np.arange(cells_rows)[:, None, None]
-    c = np.arange(cells_cols)[None, :, None]
-    k = np.arange(2)[None, None, :]
-    t = (r * cells_cols + c) * 2 + k
-    return np.ascontiguousarray(
-        np.transpose(t, (1, 0, 2)).reshape(-1).astype(np.int32))
+class TerrainPlan(NamedTuple):
+    """The two executables of one terrain render, with their arguments:
+    ``_terrain_records(*records_args, **records_static)`` then
+    ``_terrain_render_from_records(*args, **static)``."""
+    records_args: tuple
+    records_static: dict
+    args: tuple
+    static: dict
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size_r", "row_size_c"))
-def _segment_axis_estimate(bbox, perm_c, width, height, row_size_r, row_size_c):
-    """Walk-work estimates for row-major vs column-major segment binning.
-
-    A mesh axis that projects near-vertically degenerates (every mesh row's
-    y-extent spans every tile row); the other axis is then cheap. Returns
-    two scalars the host compares.
-    """
-    from . import segments as seg
-    # Sum in f32: per-tile estimates fit int32 but the total can reach
-    # T * NTX (~1.7e10 at grid=4096), which overflows int32.
-    est_r = seg.segment_bin(bbox, width, height,
-                            row_size_r).counts_est.astype(jnp.float32).sum()
-    est_c = seg.segment_bin(bbox[perm_c], width, height,
-                            row_size_c).counts_est.astype(jnp.float32).sum()
-    return est_r, est_c
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "fs_mode", "fill_rule"))
-def _terrain_render_strips(records, bbox, heights, lut, h_min, h_max,
-                           exposure, sun_dir, spacing, exaggeration,
-                           width, height, row_size, fs_mode="shipped",
-                           fill_rule="inclusive"):
-    """Strip-walk pallas path over draw-order records (strips.py).
-
-    No data-dependent shapes: no valid-count host sync, no capacity
-    buckets, no axis-estimate roundtrip -- one compile per scene config.
-    """
-    from . import strips
-    v0, v1, v2, mask = strips.render_gbuffer_strips(
-        records, bbox, row_size, width, height, fill_rule=fill_rule)
-    if fs_mode == "shipped":
-        h_range = h_max - h_min
-        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure, sun_dir)
-    return fragment.terrain_fs_extended(v0, v1, v2, mask, lut, heights,
-                                        h_min, h_max, exposure, sun_dir,
-                                        spacing, exaggeration)
-
-
-def _strips_fit(height: int) -> bool:
-    """Six f32 accumulator strips must fit VMEM (strips.py / packed.py)."""
-    h8 = -(-height // TILE_H) * TILE_H
-    return h8 * 128 * 4 * 6 < 12 * 2**20
-
-
-# ---------------- packed-stream dense path (round 3 default) ----------------
-
-def _terrain_cols(xyuv, indices, heights, view, proj, spacing, exaggeration,
-                  width, height, fs_mode, grid_n=None):
-    """Vertex transform + triangle setup, returning the raw column vectors
-    (no (T, 40) record materialization -- the packed stream is emitted
-    straight from these). grid_n: when the mesh is build_grid_xyuv(grid_n)
-    (Scene/TerrainSpike/spike benchmarks), triangle setup uses gather-free
-    strided corner slices (setup_cols_grid; the three row gathers cost
-    ~69 ms/frame at 2.1M triangles)."""
-    if fs_mode == "shipped":
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-    else:
-        x = xyuv[:, 0]
-        z = xyuv[:, 1]
-        sp = jnp.maximum(spacing, 1e-8)
-        h = transform.sample_height_nearest(heights, xyuv[:, 2:4])
-        world = jnp.stack([x * sp, h * exaggeration, z * sp,
-                           jnp.ones_like(x)], axis=-1)
-        clip = (world @ view.T) @ proj.T
-        varyings = jnp.stack([h, xyuv[:, 2], xyuv[:, 3]], axis=-1)
-    xf, yf, _z, w = clip_to_fb(clip, width, height)
-    if _grid_split_ok(grid_n, indices):
-        from .setup import setup_cols_grid
-        cols, bbox, _meta = setup_cols_grid(xf, yf, _z, w, varyings, grid_n,
-                                            width, height)
-    else:
-        cols, bbox = setup_cols(xf, yf, _z, w, varyings, indices,
-                                width, height)
-    return tuple(cols), bbox
-
-
-def _grid_split_ok(grid_n, indices) -> bool:
-    """Gather-free split-grid setup applies when the mesh is a
-    build_grid_xyuv(grid_n) grid, ids fit one f32 (< 2^24), and the mesh
-    is large enough that the removed row gathers (~33 B/tri x 16 lane-pad
-    x 3 corners) outweigh the split layout's doubled per-entry worklist
-    overhead (measured crossover ~400K triangles: grid=1024 527 vs
-    629 ms/b4 split vs gathered; grid=128 was FASTER gathered under the
-    round-3a per-entry DMA ring). VF_SPLIT_MIN_T re-tunes the crossover:
-    the round-3c flat cross-entry pipeline removed the per-entry
-    prime/stall this gate was protecting against."""
-    if grid_n is None:
-        return False
-    t = 2 * (grid_n - 1) * (grid_n - 1)
-    min_t = int(os.environ.get("VF_SPLIT_MIN_T", "400000"))
-    return int(indices.shape[0]) == t and min_t <= t < (1 << 24)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "fs_mode", "use_pallas", "grid_n"))
-def _terrain_gbuffer_batch_packed(xyuv, indices, heights, views, projs,
-                                  spacing, exaggeration, width, height,
-                                  row_size, fs_mode="shipped",
-                                  use_pallas=True, grid_n=None):
-    """The packed batch path's g-buffer stage alone: B frames ->
-    (v0, v1, v2, mask) planes. Split out so the fragment epilogue can run
-    in its OWN executable (VF_PACKED_SPLIT_FS=1): the single-frame list
-    path measured a 30x slowdown when XLA fuses a gather/transcendental
-    epilogue into the same computation as a pallas call (docs/NEXT.md)."""
-    from . import packed
-
-    def prep(view, proj):
-        return _terrain_cols(xyuv, indices, heights, view, proj, spacing,
-                             exaggeration, width, height, fs_mode,
-                             grid_n=grid_n)
-
-    cols_b, bbox_b = jax.vmap(prep)(views, projs)
-    if _grid_split_ok(grid_n, indices):
-        from .setup import grid_split_ids
-        eff_row_size, tri_ids = grid_split_ids(grid_n)
-        id_stride = 2
-    else:
-        eff_row_size, tri_ids, id_stride = row_size, None, 1
-    if use_pallas:
-        return packed.render_gbuffer_packed_batch(
-            cols_b, bbox_b, eff_row_size, width, height,
-            tri_ids=tri_ids, id_stride=id_stride)
-    return jax.vmap(
-        lambda cb, bb: packed.render_gbuffer_packed_ref(
-            cb, bb, eff_row_size, width, height,
-            tri_ids=tri_ids, id_stride=id_stride)
-    )(cols_b, bbox_b)
-
-
-@functools.partial(jax.jit, static_argnames=("fs_mode",))
-def _terrain_fs_batch(v0, v1, v2, mask, heights, lut, h_min, h_max,
-                      exposure, sun_dir, nsp, exaggeration,
-                      fs_mode="shipped"):
-    """Batched fragment epilogue over g-buffer planes (split stage 2)."""
-    if fs_mode == "shipped":
-        h_range = h_max - h_min
-        return jax.vmap(
-            lambda a, b, c, m: fragment.terrain_fs(a, b, c, m, lut, h_range,
-                                                   exposure, sun_dir)
-        )(v0, v1, v2, mask)
-    return jax.vmap(
-        lambda a, b, c, m: fragment.terrain_fs_extended(
-            a, b, c, m, lut, heights, h_min, h_max, exposure, sun_dir,
-            nsp, exaggeration)
-    )(v0, v1, v2, mask)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "fs_mode", "use_pallas", "grid_n"))
-def _terrain_render_batch_packed(xyuv, indices, heights, views, projs, lut,
-                                 h_min, h_max, exposure, sun_dir, spacing,
-                                 exaggeration, width, height, row_size,
-                                 fs_mode="shipped", nspacing=None,
-                                 use_pallas=True, grid_n=None):
-    """Batched packed-stream strip-walk path: B frames in one dispatch, one
-    pallas_call, 128 B/triangle of HBM traffic (4x less than the strips
-    row-record stream), no data-dependent shapes. The round-3 dense-mesh
-    default (docs/NEXT.md levers 1-2). use_pallas=False runs the jnp
-    reference walker over the identical stream (CPU meshes / oracle)."""
-    v0, v1, v2, mask = _terrain_gbuffer_batch_packed.__wrapped__(
-        xyuv, indices, heights, views, projs, spacing, exaggeration,
-        width, height, row_size, fs_mode=fs_mode, use_pallas=use_pallas,
-        grid_n=grid_n)
-    nsp = spacing if nspacing is None else nspacing
-    return _terrain_fs_batch.__wrapped__(
-        v0, v1, v2, mask, heights, lut, h_min, h_max, exposure, sun_dir,
-        nsp, exaggeration, fs_mode=fs_mode)
-
-
-def _terrain_render_batch_packed_split(xyuv, indices, heights, views, projs,
-                                       lut, h_min, h_max, exposure, sun_dir,
-                                       spacing, exaggeration, width, height,
-                                       row_size, fs_mode="shipped",
-                                       nspacing=None, use_pallas=True,
-                                       grid_n=None):
-    """Same result as _terrain_render_batch_packed, as TWO executables:
-    the g-buffer planes materialize to HBM between them, keeping the
-    fragment epilogue out of the pallas call's computation
-    (VF_PACKED_SPLIT_FS=1; byte-identical by construction)."""
-    v0, v1, v2, mask = _terrain_gbuffer_batch_packed(
-        xyuv, indices, heights, views, projs, spacing, exaggeration,
-        width, height, row_size, fs_mode=fs_mode, use_pallas=use_pallas,
-        grid_n=grid_n)
-    nsp = spacing if nspacing is None else nspacing
-    return _terrain_fs_batch(
-        v0, v1, v2, mask, heights, lut, h_min, h_max, exposure, sun_dir,
-        nsp, exaggeration, fs_mode=fs_mode)
-
-
-def _resident_ok(T: int, width: int, height: int, row_size: int,
-                 fs_mode: str) -> bool:
-    """Resident-stream fused kernel eligibility (moderate grid meshes):
-    shipped FS only (the FS runs in-kernel), whole padded frame stream +
-    strip buffers fit scoped VMEM (packed.resident_fused_ok), and the
-    knob VF_PACKED_RESIDENT=0 doesn't force the slab-ring path. At
-    grid=128 the slab ring's per-slab DMA machinery is the wall (4.5 of
-    8.8 ms/frame, scripts/exp_g128.py); keeping the ~4 MB stream
-    VMEM-resident across a frame's column programs removes it."""
-    if os.environ.get("VF_PACKED_RESIDENT", "1") == "0":
-        return False
-    if fs_mode != "shipped":
-        return False
-    from . import packed
-    return packed.resident_fused_ok(T, width, height, row_size)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "grid_n"))
-def _terrain_render_batch_resident(xyuv, indices, heights, views, projs,
-                                   lut, h_min, h_max, exposure, sun_dir,
-                                   spacing, exaggeration, width, height,
-                                   row_size, grid_n=None):
-    """Batched resident-stream fused path (moderate meshes, shipped FS):
-    one pallas_call rasterizes AND shades B frames -- the frame stream is
-    fetched into VMEM once per frame and stays resident across its column
-    programs, and the fragment epilogue runs in-kernel per column strip
-    (fragment.terrain_fs_tile). Image parity vs the split path follows
-    the documented FS rounding policy (docs/NEXT.md round-5 finding):
-    g-buffers byte-exact, image bytes within 1 u8 of the XLA epilogue on
-    a ~1e-6 fraction of covered pixels."""
-    from . import packed
-
-    def prep(view, proj):
-        return _terrain_cols(xyuv, indices, heights, view, proj, spacing,
-                             exaggeration, width, height, "shipped",
-                             grid_n=grid_n)
-
-    cols_b, bbox_b = jax.vmap(prep)(views, projs)
-    h_range = h_max - h_min
-    return packed.render_image_packed_resident_fused_batch(
-        cols_b, bbox_b, lut, h_range, exposure, sun_dir, row_size,
-        width, height)
-
-
-# ---------------- vertex-stream dense path (round 3c) ----------------
-
-# Slots ratchet: (grid_n, W, H) -> candidate slots. Grow-only, shared
-# across Renderer instances like the other ratchets (documented in
-# ARCHITECTURE.md): a camera that overflows bumps to the next pow2 and
-# the frame re-renders through the byte-identical packed path.
-_VTX_RATCHET: dict = {}
-
-
-def _vtx_slots(grid_n, width, height) -> int:
-    return _VTX_RATCHET.get((grid_n, width, height), 4)
-
-
-def _vtx_bump(grid_n, width, height, needed: float) -> None:
-    cur = _vtx_slots(grid_n, width, height)
-    want = 4
-    while want < needed:
-        want *= 2
-    _VTX_RATCHET[(grid_n, width, height)] = max(want, cur * 2)
-
-
-def _vtx_ok(grid_n, indices, width: int, height: int) -> bool:
-    """Vertex-stream kernel eligibility: build_grid_xyuv(grid_n) topology
-    (triangles are synthesized in-kernel from the vertex grid), <= 8
-    vertex chunks (grid <= 1024), painter ids on one f32, a slot demand
-    within the kernel's two-window placement limit (<= 128), and the
-    five full-frame accumulator planes fit VMEM."""
-    if grid_n is None or grid_n < 2 or grid_n > 1024:
-        return False
-    if _vtx_slots(grid_n, width, height) > 128:
-        return False
-    t = 2 * (grid_n - 1) * (grid_n - 1)
-    if int(indices.shape[0]) != t or t >= (1 << 24):
-        return False
-    ntx = -(-width // 128)
-    h8 = -(-height // TILE_H) * TILE_H
-    return ntx * h8 * 128 * 4 * 5 < 12 * 2**20
-
-
-def _vtx_fuse_ok(width: int, height: int) -> bool:
-    """Fused-FS eligibility: the fused kernel holds SIX full-frame planes
-    in scoped VMEM (five f32 accumulator scratch + the u32 image output)
-    vs the g-buffer kernel's five; gate it a little under the 16 MB
-    scoped-VMEM limit, leaving room for the ring/cols/lhs scratch.
-    VF_VTX_FUSE_FS=0 is the split-path measurement knob."""
-    if os.environ.get("VF_VTX_FUSE_FS", "1") == "0":
-        return False
-    ntx = -(-width // 128)
-    h8 = -(-height // TILE_H) * TILE_H
-    return ntx * h8 * 128 * 4 * 6 < 14 * 2**20
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "fs_mode", "grid_n", "slots"))
-def _terrain_render_batch_vtx(xyuv, indices, heights, views, projs, lut,
-                              h_min, h_max, exposure, sun_dir, spacing,
-                              exaggeration, width, height, fs_mode="shipped",
-                              nspacing=None, grid_n=None, slots=4):
-    """Batched vertex-stream path: B frames in one dispatch, ~16 B of HBM
-    traffic per triangle (8x less than packed) -- triangle setup runs
-    INSIDE the kernel on lane-packed vertex rows (vtx.py). Returns
-    (images, needed): callers must check needed <= slots and re-render
-    through the packed path otherwise (see vtx.py overflow contract)."""
-    from . import vtx
-
-    def vs_fields(view, proj):
-        if fs_mode == "shipped":
-            clip, vary = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        else:
-            x = xyuv[:, 0]
-            z = xyuv[:, 1]
-            sp = jnp.maximum(spacing, 1e-8)
-            h = transform.sample_height_nearest(heights, xyuv[:, 2:4])
-            world = jnp.stack([x * sp, h * exaggeration, z * sp,
-                               jnp.ones_like(x)], axis=-1)
-            clip = (world @ view.T) @ proj.T
-            vary = jnp.stack([h, xyuv[:, 2], xyuv[:, 3]], axis=-1)
-        xf, yf, zf, w = clip_to_fb(clip, width, height)
-        zero = jnp.zeros_like(xf)
-        return (xf, yf, w, vary[:, 0], vary[:, 1], vary[:, 2], zf, zero)
-
-    fields_b = jax.vmap(vs_fields)(views, projs)
-    # Dense grids (sub-pixel cells): 4-slot cheap walk covers almost all
-    # chunk-rows. Moderate grids span many pixels uniformly -- gating on
-    # span would spill everything, so only the clip-clean gate applies.
-    base = 4 if grid_n >= 512 else slots
-    if fs_mode == "shipped" and _vtx_fuse_ok(width, height):
-        # Fused resolve: the shipped FS runs IN-KERNEL on the
-        # VMEM-resident planes (bit-identical to the split path by
-        # construction, fragment.terrain_fs_tile) -- no g-buffer
-        # materialization, no XLA epilogue (~17 ms/frame at 800x600,
-        # BASELINE.md round 4). VF_VTX_FUSE_FS=0 forces the split path
-        # (measurement knob).
-        h_range = h_max - h_min
-        return vtx.render_image_vtx_batch(
-            fields_b, lut, h_range, exposure, sun_dir, grid_n, width,
-            height, slots=slots, base_slots=base)
-    (v0, v1, v2, mask), needed = vtx.render_gbuffer_vtx_batch(
-        fields_b, grid_n, width, height, slots=slots, base_slots=base)
-    if fs_mode == "shipped":
-        h_range = h_max - h_min
-        imgs = jax.vmap(
-            lambda a, b, c, m: fragment.terrain_fs(a, b, c, m, lut, h_range,
-                                                   exposure, sun_dir)
-        )(v0, v1, v2, mask)
-    else:
-        nsp = spacing if nspacing is None else nspacing
-        imgs = jax.vmap(
-            lambda a, b, c, m: fragment.terrain_fs_extended(
-                a, b, c, m, lut, heights, h_min, h_max, exposure, sun_dir,
-                nsp, exaggeration)
-        )(v0, v1, v2, mask)
-    return imgs, needed
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "cap", "tile_h", "tile_w", "fs_mode"))
-def _terrain_render_segments(records, bbox, heights, lut, h_min, h_max,
-                             exposure, sun_dir, spacing, exaggeration,
-                             width, height, row_size, cap, perm=None,
-                             tile_h=TILE_H, tile_w=TILE_W, fs_mode="shipped"):
-    """Segment-walk pallas path over culled+compacted records. The only
-    dynamic quantity is the valid-triangle count (host-rounded to pow2
-    buckets -> few recompiles). ``perm`` optionally reorders the record
-    stream (e.g. column-major) -- painter output is identical because the
-    kernel compares original draw-order ids."""
-    from . import segments as seg
-    if perm is not None:
-        bbox = bbox[perm]
-        crecords, _ = seg.compact_valid(records, bbox, cap, ids=perm)
-    else:
-        crecords, _ = seg.compact_valid(records, bbox, cap)
-    sb = seg.segment_bin(bbox, width, height, row_size, tile_h, tile_w)
-    # Adjacent f32 painter ids collide at 2^24 (grid>2896 meshes): switch to
-    # the exact split-id compare there. T is static, so this is trace-time.
-    exact_ids = int(records.shape[0]) - 1 >= (1 << 24)
-    v0, v1, v2, mask = seg.render_gbuffer_segments(
-        crecords, sb, width, height, tile_h, tile_w, exact_ids=exact_ids)
-    if fs_mode == "shipped":
-        h_range = h_max - h_min
-        return fragment.terrain_fs(v0, v1, v2, mask, lut, h_range, exposure, sun_dir)
-    return fragment.terrain_fs_extended(v0, v1, v2, mask, lut, heights,
-                                        h_min, h_max, exposure, sun_dir,
-                                        spacing, exaggeration)
-
-
-@functools.partial(jax.jit, static_argnames=("width", "height", "analytic",
-                                             "fill_rule"))
-def _terrain_records_extended(xyuv, indices, heights, view, proj, spacing,
-                              exaggeration, width, height, analytic=False,
-                              fill_rule="inclusive"):
-    """Records with (h, u, v) varyings for the extended fragment pipeline."""
-    x = xyuv[:, 0]
-    z = xyuv[:, 1]
-    sp = jnp.maximum(spacing, 1e-8)
-    h = transform.sample_height_nearest(heights, xyuv[:, 2:4])
-    if analytic:
-        h = h + transform.analytic_height(x, z)
-    world = jnp.stack([x * sp, h * exaggeration, z * sp,
-                       jnp.ones_like(x)], axis=-1)
-    clip = (world @ view.T) @ proj.T
-    varyings = jnp.stack([h, xyuv[:, 2], xyuv[:, 3]], axis=-1)
-    xf, yf, _z, w = clip_to_fb(clip, width, height)
-    records, bbox = triangle_setup(xf, yf, _z, w, varyings, indices,
-                                   width, height, fill_rule=fill_rule)
-    return records, bbox
-
-
-def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing, exaggeration,
-                      h_min, h_max, exposure, sun_dir, lut, width: int, height: int,
-                      fs_mode: str = "shipped", normal_spacing=None,
-                      backend: Optional[str] = None, row_size: "int | None" = None,
-                      grid_n: "int | None" = None,
-                      as_device: bool = False) -> np.ndarray:
-    """Render the terrain pipeline to an (H, W, 4) uint8 numpy array.
-
-    fs_mode "shipped" reproduces src/shaders/terrain.wgsl exactly (incl. the
-    analytic fallback relief added to sampled heights); "extended" is the
-    documented fwd-diff + Reinhard pipeline used by Renderer.render_rgba()
-    (no analytic fallback: it renders the real DEM).
-    """
+def plan_terrain(xyuv, indices, heights, view, proj, *, spacing, exaggeration,
+                 h_min, h_max, exposure, sun_dir, lut, width: int, height: int,
+                 fs_mode: str = "shipped", normal_spacing=None,
+                 backend: Optional[str] = None) -> TerrainPlan:
+    """Stage 1 of ``render_terrain_u8``: upload the inputs, run triangle
+    setup, and size the binning on the host (one device_get)."""
     be = backend or backend_name()
     xyuv = jnp.asarray(xyuv, jnp.float32)
     indices = jnp.asarray(np.asarray(indices).reshape(-1, 3), jnp.int32)
     heights = jnp.asarray(heights, jnp.float32)
-    view = jnp.asarray(view, jnp.float32)
-    proj = jnp.asarray(proj, jnp.float32)
-    lut = jnp.asarray(lut, jnp.float32)
     spacing = jnp.float32(spacing)
     exaggeration = jnp.float32(exaggeration)
-    h_min = jnp.float32(h_min)
-    h_max = jnp.float32(h_max)
-    exposure = jnp.float32(exposure)
-    sun_dir = jnp.asarray(sun_dir, jnp.float32)
-
     # Texel world step used only for the extended FS's fwd-diff normals; the
     # mesh may already be in world units (spacing=1) while normals still
     # need the true DEM spacing.
     nsp = jnp.float32(spacing if normal_spacing is None else normal_spacing)
-    T = int(indices.shape[0])
-    dense_env = os.environ.get("VF_DENSE")
-    dense_mode = dense_env or "vtx"
-    # Hardware fill-rule mode (VF_FILL_RULE=hw): 8.8 snap + top-left rule
-    # (setup.py). Supported on the jnp oracle, the list kernel and the
-    # strips kernel; hw records carry bias columns the packed/vtx
-    # streams have no room for, so dense hw renders route to strips.
-    fill_rule = os.environ.get("VF_FILL_RULE", "inclusive")
-    if fill_rule not in ("inclusive", "hw"):
-        fill_rule = "inclusive"
-    if fill_rule == "hw":
-        dense_mode = "strips"
+    fill_rule = fill_rule_name()
 
-    rs_dense = int(row_size) if row_size else T
-    if (be == "pallas" and T > SEGMENT_THRESHOLD
-            and dense_env in (None, "resident")
-            and fill_rule != "hw"
-            and _resident_ok(T, width, height, rs_dense, fs_mode)):
-        # Moderate grid meshes (T <= ~40K), round-5 default: the whole
-        # frame stream stays VMEM-resident across the frame's column
-        # programs and the shipped FS runs in-kernel (packed.py
-        # resident-fused kernel). The vtx kernel is wrong here (its
-        # ~1.25 us/slot-visit cost dominates at moderate grids: 34.9
-        # ms/frame at grid=128 vs 8.4 through the slab ring and ~3.5
-        # resident -- docs/NEXT.md round-5); the slab ring's per-slab
-        # DMA machinery is the next-biggest cost and this removes it.
-        img_u32 = _terrain_render_batch_resident(
-            xyuv, indices, heights, view[None], proj[None], lut, h_min,
-            h_max, exposure, sun_dir, spacing, exaggeration, width,
-            height, rs_dense, grid_n=grid_n)[0]
-        if as_device:
-            return img_u32
-        return _formats.u32_image_to_rgba_u8(jax.device_get(img_u32))
+    records_args = (xyuv, indices, heights, jnp.asarray(view, jnp.float32),
+                    jnp.asarray(proj, jnp.float32), spacing, exaggeration,
+                    width, height)
+    records_static = dict(fs_mode=fs_mode, fill_rule=fill_rule)
+    records, bbox = _terrain_records(*records_args, **records_static)
+    capacity, span_x, span_y = _static_bin_params(bbox, width, height)
+    args = (records, bbox, heights, jnp.asarray(lut, jnp.float32),
+            jnp.float32(h_min), jnp.float32(h_max), jnp.float32(exposure),
+            jnp.asarray(sun_dir, jnp.float32), nsp, exaggeration)
+    static = dict(width=width, height=height, capacity=capacity,
+                  span_x=span_x, span_y=span_y, fs_mode=fs_mode,
+                  use_pallas=(be == "pallas"), fill_rule=fill_rule)
+    return TerrainPlan(records_args, records_static, args, static)
 
-    if be == "pallas" and T > SEGMENT_THRESHOLD and dense_mode == "vtx":
-        if _vtx_ok(grid_n, indices, width, height):
-            # Dense grid meshes, round-4 default (hardware-validated
-            # byte-exact + 90.8 ms/frame at grid=1024 b4 -- BASELINE.md
-            # round 4): vertex-stream kernel (~16 B/tri HBM traffic,
-            # in-kernel triangle setup, slot-stacked MXU deposit, vtx.py).
-            # A frame whose max bbox span exceeds the slots ratchet
-            # re-renders through the byte-identical packed path below and
-            # bumps the ratchet.
-            slots = _vtx_slots(grid_n, width, height)
-            img_u32, needed = _terrain_render_batch_vtx(
-                xyuv, indices, heights, view[None], proj[None], lut, h_min,
-                h_max, exposure, sun_dir, spacing, exaggeration, width,
-                height, fs_mode=fs_mode, nspacing=nsp, grid_n=grid_n,
-                slots=slots)
-            needed = float(jax.device_get(needed))
-            if needed <= slots:
-                img_u32 = img_u32[0]
-                if as_device:
-                    return img_u32
-                return _formats.u32_image_to_rgba_u8(jax.device_get(img_u32))
-            _vtx_bump(grid_n, width, height, needed)
-        # Non-grid geometry / out-of-envelope sizes / slot overflow:
-        # byte-identical packed stream.
-        dense_mode = "packed"
 
-    if (be == "pallas" and T > SEGMENT_THRESHOLD and dense_mode == "packed"
-            and _strips_fit(height)):
-        # Dense meshes, round-3 default: packed 128 B/tri stream emitted
-        # straight from setup columns + strip-walk kernel with 32 KB slab
-        # DMAs (packed.py). No (T, 40) records, no host roundtrips, no
-        # data-dependent recompiles. VF_PACKED_SPLIT_FS=1 runs the
-        # fragment epilogue as a second executable (byte-identical; the
-        # mis-fusion experiment knob -- docs/NEXT.md item 5).
-        rs = int(row_size) if row_size else T
-        entry = (_terrain_render_batch_packed_split
-                 if os.environ.get("VF_PACKED_SPLIT_FS") == "1"
-                 else _terrain_render_batch_packed)
-        img_u32 = entry(
-            xyuv, indices, heights, view[None], proj[None], lut, h_min,
-            h_max, exposure, sun_dir, spacing, exaggeration, width, height,
-            rs, fs_mode=fs_mode, nspacing=nsp, grid_n=grid_n)[0]
-        if as_device:
-            return img_u32
-        return _formats.u32_image_to_rgba_u8(jax.device_get(img_u32))
+def render_terrain_u8(*args, as_device: bool = False, **kwargs) -> np.ndarray:
+    """Render the terrain pipeline to an (H, W, 4) uint8 numpy array.
 
-    if fs_mode == "extended":
-        records, bbox = _terrain_records_extended(
-            xyuv, indices, heights, view, proj, spacing, exaggeration,
-            width, height, fill_rule=fill_rule)
-    else:
-        records, bbox = _terrain_records(
-            xyuv, indices, heights, view, proj, spacing, exaggeration,
-            width, height, fill_rule=fill_rule)
-
-    if be == "pallas" and _strips_fit(height):
-        # Strip-walk kernel straight over draw-order records: each
-        # (mesh-row, tile-column) interval is walked once into a
-        # full-height VMEM strip. row_size is the id stride of one mesh
-        # row (2*(G-1) for grids; T for arbitrary geometry, which
-        # degenerates to interval binning). Zero host roundtrips, zero
-        # data-dependent recompiles -- the default pallas terrain path
-        # (the list kernel recompiles whenever a camera move crosses a
-        # capacity bucket, which dominates real orbit workloads).
-        rs = int(row_size) if row_size else T
-        img_u32 = _terrain_render_strips(
-            records, bbox, heights, lut, h_min, h_max, exposure, sun_dir,
-            nsp, exaggeration, width, height, rs, fs_mode=fs_mode,
-            fill_rule=fill_rule)
-    elif be == "pallas" and T > SEGMENT_THRESHOLD and fill_rule != "hw":
-        # Very tall framebuffers (H > ~2048): the strip accumulators don't
-        # fit VMEM; fall back to the round-1 segment-walk kernel over
-        # culled+compacted records with axis adaptation.
-        rs = int(row_size) if row_size else T
-        cap = _round_capacity(int(jax.device_get(_valid_count(bbox))))
-        perm, rs_used = None, rs
-        if 0 < rs < T and T % rs == 0:
-            cells_rows, cells_cols = T // rs, rs // 2
-            perm_c = jnp.asarray(_column_major_perm(cells_rows, cells_cols))
-            rs_c = 2 * cells_rows
-            est_r, est_c = jax.device_get(_segment_axis_estimate(
-                bbox, perm_c, width, height, rs, rs_c))
-            if float(est_c) < float(est_r):
-                perm, rs_used = perm_c, rs_c
-        img_u32 = _terrain_render_segments(
-            records, bbox, heights, lut, h_min, h_max, exposure, sun_dir,
-            nsp, exaggeration, width, height, rs_used, cap, perm=perm,
-            fs_mode=fs_mode)
-    else:
-        capacity, span_x, span_y = _static_bin_params(bbox, width, height)
-        img_u32 = _terrain_render_from_records(
-            records, bbox, heights, lut, h_min, h_max, exposure, sun_dir,
-            nsp, exaggeration, width, height, capacity, span_x, span_y,
-            fs_mode=fs_mode, use_pallas=(be == "pallas"),
-            fill_rule=fill_rule)
+    Arguments are ``plan_terrain``'s. fs_mode "shipped" reproduces
+    src/shaders/terrain.wgsl exactly (incl. the analytic fallback relief
+    added to sampled heights); "extended" is the documented fwd-diff +
+    Reinhard pipeline used by Renderer.render_rgba() (no analytic
+    fallback: it renders the real DEM). ``backend`` overrides
+    ``backend_name()``. ``as_device`` returns the packed u32 image still
+    on the device.
+    """
+    plan = plan_terrain(*args, **kwargs)
+    img_u32 = _terrain_render_from_records(*plan.args, **plan.static)
     if as_device:
         return img_u32
     return _formats.u32_image_to_rgba_u8(jax.device_get(img_u32))
@@ -736,22 +231,24 @@ def render_terrain_u8(xyuv, indices, heights, view, proj, *, spacing, exaggerati
 # ---------------- batched terrain (throughput path) ----------------
 
 @functools.partial(jax.jit, static_argnames=(
-    "width", "height", "capacity", "span_x", "span_y", "fs_mode", "use_pallas"))
+    "width", "height", "capacity", "span_x", "span_y", "fs_mode",
+    "use_pallas", "fill_rule"))
 def _terrain_render_batch(xyuv, indices, heights, views, projs, lut,
                           h_min, h_max, exposure, sun_dir, spacing,
                           exaggeration, width, height, capacity,
                           span_x=4, span_y=4,
-                          fs_mode="shipped", use_pallas=False):
+                          fs_mode="shipped", use_pallas=False,
+                          fill_rule="inclusive"):
     """Render B frames (one camera each) of one scene in a single dispatch.
 
-    The TPU throughput regime: many cameras/frames per XLA dispatch with the
-    framebuffer batch resident in HBM. views/projs: (B, 4, 4).
+    views/projs: (B, 4, 4). The raster kernel takes all B frames in one
+    launch (frames ride its first grid axis); binning capacity and spans
+    are shared (``_terrain_batch_counts``).
     """
     def prep(view, proj):
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        x, y, _z, w = clip_to_fb(clip, width, height)
-        records, bbox = triangle_setup(x, y, _z, w, varyings, indices, width, height)
+        records, bbox = _terrain_records.__wrapped__(
+            xyuv, indices, heights, view, proj, spacing, exaggeration,
+            width, height, fs_mode=fs_mode, fill_rule=fill_rule)
         binning = bin_triangles(bbox, width, height, capacity,
                                 span_x=span_x, span_y=span_y)
         return records, binning.tile_lists, binning.counts
@@ -759,101 +256,47 @@ def _terrain_render_batch(xyuv, indices, heights, views, projs, lut,
     records_b, lists_b, counts_b = jax.vmap(prep)(views, projs)
 
     if use_pallas:
-        from . import pallas_backend
         v0, v1, v2, mask = pallas_backend.render_gbuffer_batch(
-            records_b, lists_b, counts_b, width, height)
+            records_b, lists_b, counts_b, width, height, fill_rule=fill_rule)
     else:
         v0, v1, v2, mask = jax.vmap(
-            lambda r, tl: tiles.render_gbuffer(r, tl, width, height)
+            lambda r, tl: tiles.render_gbuffer(r, tl, width, height,
+                                               fill_rule=fill_rule)
         )(records_b, lists_b)
 
-    h_range = h_max - h_min
     return jax.vmap(
-        lambda a, b, c, m: fragment.terrain_fs(a, b, c, m, lut, h_range,
-                                               exposure, sun_dir)
+        lambda a, b, c, m: _terrain_fs(a, b, c, m, heights, lut, h_min, h_max,
+                                       exposure, sun_dir, spacing,
+                                       exaggeration, fs_mode)
     )(v0, v1, v2, mask)
 
 
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "fs_mode"))
-def _terrain_render_batch_strips(xyuv, indices, heights, views, projs, lut,
-                                 h_min, h_max, exposure, sun_dir, spacing,
-                                 exaggeration, width, height, row_size,
-                                 fs_mode="shipped"):
-    """Batched strip-walk path: B frames in one dispatch, one pallas_call,
-    no data-dependent shapes (the TPU throughput regime for dense meshes)."""
-    from . import strips
-
-    def prep(view, proj):
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        x, y, _z, w = clip_to_fb(clip, width, height)
-        return triangle_setup(x, y, _z, w, varyings, indices, width, height)
-
-    records_b, bbox_b = jax.vmap(prep)(views, projs)
-    v0, v1, v2, mask = strips.render_gbuffer_strips_batch(
-        records_b, bbox_b, row_size, width, height)
-    h_range = h_max - h_min
-    return jax.vmap(
-        lambda a, b, c, m: fragment.terrain_fs(a, b, c, m, lut, h_range,
-                                               exposure, sun_dir)
-    )(v0, v1, v2, mask)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "width", "height", "row_size", "cap", "fs_mode"))
-def _terrain_render_batch_segments(xyuv, indices, heights, views, projs, lut,
-                                   h_min, h_max, exposure, sun_dir, spacing,
-                                   exaggeration, width, height, row_size, cap,
-                                   fs_mode="shipped"):
-    """Batched segment-walk path (dense meshes): one pallas_call for all B
-    frames over per-frame culled+compacted record streams."""
-    from . import segments as seg
-
-    def prep(view, proj):
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        x, y, _z, w = clip_to_fb(clip, width, height)
-        records, bbox = triangle_setup(x, y, _z, w, varyings, indices, width, height)
-        crecords, _ = seg.compact_valid(records, bbox, cap)
-        return crecords, seg.segment_bin(bbox, width, height, row_size)
-
-    crecords_b, sb_b = jax.vmap(prep)(views, projs)
-    exact_ids = int(indices.shape[0]) >= (1 << 24)
-    v0, v1, v2, mask = seg.render_gbuffer_segments_batch(
-        crecords_b, sb_b, width, height, exact_ids=exact_ids)
-    h_range = h_max - h_min
-    return jax.vmap(
-        lambda a, b, c, m: fragment.terrain_fs(a, b, c, m, lut, h_range,
-                                               exposure, sun_dir)
-    )(v0, v1, v2, mask)
-
-
-@functools.partial(jax.jit, static_argnames=("width", "height"))
-def _terrain_batch_valid_count(xyuv, indices, heights, views, projs,
-                               spacing, exaggeration, width, height):
-    def one(view, proj):
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        x, y, _z, w = clip_to_fb(clip, width, height)
-        _, bbox = triangle_setup(x, y, _z, w, varyings, indices, width, height)
-        return _valid_count.__wrapped__(bbox)
-    return jax.vmap(one)(views, projs).max()
-
-
-@functools.partial(jax.jit, static_argnames=("width", "height"))
+@functools.partial(jax.jit, static_argnames=("width", "height", "fs_mode",
+                                             "fill_rule"))
 def _terrain_batch_counts(xyuv, indices, heights, views, projs,
-                          spacing, exaggeration, width, height):
+                          spacing, exaggeration, width, height,
+                          fs_mode="shipped", fill_rule="inclusive"):
+    """Shared static binning parameters for a camera batch: max per-tile
+    count and max tile spans over all frames."""
     def one(view, proj):
-        clip, varyings = transform.terrain_vs(xyuv, heights, view, proj,
-                                              spacing, exaggeration)
-        x, y, _z, w = clip_to_fb(clip, width, height)
-        _, bbox = triangle_setup(x, y, _z, w, varyings, indices, width, height)
+        _, bbox = _terrain_records.__wrapped__(
+            xyuv, indices, heights, view, proj, spacing, exaggeration,
+            width, height, fs_mode=fs_mode, fill_rule=fill_rule)
         counts = tile_counts(bbox, width, height)
         sx, sy = tile_span_max(bbox, width, height)
         return counts.max(), sx, sy
     cm, sx, sy = jax.vmap(one)(views, projs)
     return cm.max(), sx.max(), sy.max()
+
+
+def batch_bin_params(xyuv, indices, heights, views, projs, spacing,
+                     exaggeration, width, height, fs_mode="shipped",
+                     fill_rule="inclusive"):
+    """Host-rounded (capacity, span_x, span_y) for ``_terrain_render_batch``."""
+    cmax, sx, sy = jax.device_get(_terrain_batch_counts(
+        xyuv, indices, heights, views, projs, spacing, exaggeration,
+        width, height, fs_mode=fs_mode, fill_rule=fill_rule))
+    return _round_capacity(int(cmax)), _round_span(int(sx)), _round_span(int(sy))
 
 
 # ---------------- gradient triangle ----------------
@@ -876,14 +319,8 @@ def _triangle_render(width, height, use_pallas=False, fill_rule="inclusive"):
     binning = bin_triangles(bbox, width, height, capacity=8,
                             span_x=-(-width // TILE_W),
                             span_y=-(-height // TILE_H))
-    if use_pallas:
-        from . import pallas_backend
-        v0, v1, v2, mask = pallas_backend.render_gbuffer(
-            records, binning.tile_lists, width, height,
-            counts=binning.counts, fill_rule=fill_rule)
-    else:
-        v0, v1, v2, mask = tiles.render_gbuffer(
-            records, binning.tile_lists, width, height, fill_rule=fill_rule)
+    v0, v1, v2, mask = _raster(records, binning.tile_lists, binning.counts,
+                               width, height, use_pallas, fill_rule)
     return fragment.triangle_fs(v0, v1, v2, mask)
 
 
@@ -892,11 +329,8 @@ def render_triangle_u8(width: int, height: int,
                        as_device: bool = False) -> np.ndarray:
     """Deterministic gradient triangle -> (H, W, 4) uint8."""
     be = backend or backend_name()
-    fill_rule = os.environ.get("VF_FILL_RULE", "inclusive")
-    if fill_rule not in ("inclusive", "hw"):
-        fill_rule = "inclusive"
     img_u32 = _triangle_render(width, height, use_pallas=(be == "pallas"),
-                               fill_rule=fill_rule)
+                               fill_rule=fill_rule_name())
     if as_device:
         return img_u32
     return _formats.u32_image_to_rgba_u8(jax.device_get(img_u32))

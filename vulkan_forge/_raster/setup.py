@@ -1,7 +1,7 @@
 """Triangle setup and framebuffer-tile binning (all jnp, jit-friendly).
 
-This is the TPU-native replacement for the fixed-function rasterizer stages
-the reference gets from the GPU (primitive assembly, culling, binning).
+This replaces the fixed-function rasterizer stages the reference gets
+from the GPU graphics pipeline (primitive assembly, culling, binning).
 
 Geometry conventions (pinned by the reference pipelines):
   - Framebuffer coordinates: x right, y down, pixel centers at +0.5
@@ -16,7 +16,7 @@ Geometry conventions (pinned by the reference pipelines):
     painter's order means the LAST drawn triangle wins, which for a single
     indexed draw equals "maximum triangle index wins" -- an order-independent
     reduction, which is what makes the whole pipeline deterministic and
-    data-parallel on TPU.
+    data-parallel.
 
 Triangle records are (T+1, REC_WIDTH) f32 rows (row T is an always-invalid
 sentinel used to pad per-tile lists). Layout:
@@ -34,15 +34,14 @@ sentinel used to pad per-tile lists). Layout:
           az = F0*c25 + F1*c26 + F2*c27 interpolates (pos scale)*z/w
   [28:31] s_i*tau (the constant-1 attribute): S = F0*c28 + F1*c29 + F2*c30
           interpolates (same pos scale)*1, so FAR (z <= w) is S - az >= 0
-  [31:40] reserved (strips.py stamps per-block walk metadata at 35/36 in its
-          own stream copy; segments.py writes painter ids at 32..34 in its
-          compacted stream copy)
+  [31:34] hw fill rule only: per-edge coverage thresholds (BIAS*_COL)
+  [34:40] zero padding
 
 Edges are evaluated relative to their own vertex (F = dy*(px-ax) - dx*(py-ay))
 so products stay small for small triangles -- the f32 analog of the hardware's
 fixed-point watertight rasterization.
 
-Near-plane clipping, the TPU-native way (no geometry amplification):
+Near-plane clipping without geometry amplification:
 the reference GPU clips primitives against the clip volume (z >= 0, z <= w
 in WebGPU clip space) in fixed function before rasterization
 (src/terrain/pipeline.rs:107-140 -- wgpu default, no unclipped_depth).
@@ -82,7 +81,8 @@ import jax.numpy as jnp
 
 REC_WIDTH = 40
 
-# Default tile shape: one VPU-native (8, 128) f32 vector register of pixels.
+# Default tile shape: 8 x 128 = 1024 pixels, one raster program per tile
+# (pallas_backend.py: 4 warps, 8 pixels per thread).
 TILE_H = 8
 TILE_W = 128
 
@@ -107,10 +107,8 @@ def clip_to_fb(clip: jnp.ndarray, width: int, height: int):
 _W_EPS = 1e-8   # "in front of camera" threshold on clip w (hardware: w > 0)
 
 
-# Number of live record columns (0..30). Column layout in the docstring
-# above; REC_WIDTH pads row records to 40 for the spare stamped columns the
-# strips/segments streams use. The packed stream (packed.py) stores exactly
-# NUM_COLS data columns plus one metadata column per 8-triangle group.
+# Number of live record columns (0..30) under the inclusive rule. Column
+# layout in the docstring above; the hw rule adds three (31..33).
 NUM_COLS = 31
 
 # Hardware fill-rule mode (fill_rule="hw"): vertices snap to the 8.8
@@ -129,163 +127,15 @@ _HW_SNAP = 256.0          # 8.8 fixed point (Vulkan minimum subpixel bits)
 _HW_BIAS = 2.0 ** -16     # one lattice step of the snapped edge function
 
 
-def setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
-               width: int, height: int, fill_rule: str = "inclusive"):
-    """Core triangle setup: returns (cols, bbox).
-
-    cols: list of NUM_COLS (T,) f32 vectors -- the record columns documented
-    in the module docstring (0..30). bbox: (T, 4) int32 pixel bbox with the
-    invalid encoding (x1 < x0). ``triangle_setup`` stacks these into the
-    (T+1, REC_WIDTH) row layout; ``packed.build_packed_stream`` lays them
-    out 4-triangle-groups-per-row at 128 B/triangle. Both consumers see the
-    exact same f32 values, so all backends stay byte-identical.
-
-    fill_rule "inclusive" (default): all edges inclusive (f >= 0), the
-    shipped deterministic rule. "hw": 8.8 snap + top-left rule; appends
-    three per-edge bias columns (see BIAS0_COL above).
-    """
-    if fill_rule == "hw":
-        # Snap to the subpixel grid with round-half-even (matches the
-        # oracle's int(round(x * 256))). 1/256 is a power of two: the snap
-        # is exact in f32 for |x| < 2^15 px.
-        x_fb = jnp.round(x_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
-        y_fb = jnp.round(y_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
-
-    v0, v1, v2 = indices[:, 0], indices[:, 1], indices[:, 2]
-
-    # Pack all per-vertex data into one matrix and gather ROWS per corner:
-    # three (T, 8)-row gathers lower to fast strided DMA gathers, unlike
-    # eighteen independent 1-D element gathers (~30x slower on TPU).
-    # (Even row gathers cost ~69 ms/frame at 2.1M triangles -- grid meshes
-    # should use setup_cols_grid, which replaces them with strided slices.)
-    vmat = jnp.stack([x_fb, y_fb, w_clip,
-                      varyings[:, 0], varyings[:, 1], varyings[:, 2],
-                      z_ndc, jnp.zeros_like(x_fb)], axis=-1)
-    c0 = vmat[v0]  # (T, 8)
-    c1 = vmat[v1]
-    c2 = vmat[v2]
-    return setup_cols_from_corners(c0, c1, c2, width, height,
-                                   fill_rule=fill_rule, _presnapped=True)
-
-
-def setup_cols_grid(x_fb, y_fb, z_ndc, w_clip, varyings, grid_n: int,
-                    width: int, height: int, fill_rule: str = "inclusive"):
-    """Gather-free triangle setup for build_grid_xyuv meshes, in a
-    PERMUTED "split-row" stream order.
-
-    The spike grid's triangles are [a, c, b] / [b, c, d] per cell
-    (_mesh.build_grid_xyuv, parity src/terrain/mod.rs:582): each corner's
-    vertex data is a strided SLICE of the (n, n) vertex field. The
-    gathered path materializes (T, 8) corner matrices, which pad to 128
-    lanes physically -- 16x memory, ~69 ms/frame at 2.1M triangles.
-    Instead of interleaving the two in-cell triangles (any (..., 2) or
-    (..., 8)-minor interleave hits the same padding trap), this path
-    keeps per-corner per-FIELD arrays 2-D (pure pad+concat of slices)
-    and emits a PERMUTED triangle stream:
-
-      stream row q < cells:  mesh row q, diagonal k=0 triangles
-      stream row q >= cells: mesh row q - cells, k=1 triangles
-      (each stream row padded from `cells` to rs2 = ceil32(cells) slots;
-      pad slots have all-zero fields => invalid)
-
-    The doubled stream-row count doubles the per-column worklist entries
-    (each entry pays a DMA-ring prime/drain, ~4 us): a measured win only
-    when the gathers it removes are big. The pipeline gates this path to
-    large grids (pipeline._grid_split_ok); a lane-concatenated one-row
-    variant measured WORSE at grid=1024 (the cross-half interval gap
-    wastes slab DMA bytes).
-
-    True draw-order painter ids (r*row_size + 2*pos + k) ride along as
-    ``tri_ids`` (consumed by packed.build_packed_stream, which stamps
-    each 8-triangle block's base id into meta sublane 4; in-block stride
-    is 2). Pixels are byte-identical to the draw-order stream: coverage
-    is exact and the painter max runs over TRUE ids.
-
-    Returns (cols, bbox, grid_meta) where grid_meta =
-    {"row_size": rs2, "tri_ids": (T2,) int32, "id_stride": 2}.
-    """
-    n = grid_n
-    cells = n - 1
-    rs2 = -(-cells // 32) * 32         # slots per half (whole supers)
-    if fill_rule == "hw":
-        x_fb = jnp.round(x_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
-        y_fb = jnp.round(y_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
-
-    zero = jnp.zeros_like(x_fb)
-    fields = (x_fb, y_fb, w_clip, varyings[:, 0], varyings[:, 1],
-              varyings[:, 2], z_ndc, zero)
-
-    def halves(f2, k0_slice, k1_slice):
-        P = jnp.pad(f2[k0_slice], ((0, 0), (0, rs2 - cells)))
-        Q = jnp.pad(f2[k1_slice], ((0, 0), (0, rs2 - cells)))
-        return jnp.concatenate([P, Q], axis=0).reshape(2 * cells * rs2)
-
-    A = (slice(None, -1), slice(None, -1))   # (r, c)
-    B = (slice(None, -1), slice(1, None))    # (r, c+1)
-    C = (slice(1, None), slice(None, -1))    # (r+1, c)
-    D = (slice(1, None), slice(1, None))     # (r+1, c+1)
-
-    # tri0 = [a, c, b] (k=0 half), tri1 = [b, c, d] (k=1 half)
-    corners = []
-    for (k0, k1) in ((A, B), (C, C), (B, D)):
-        fs = []
-        for f in fields:
-            f2 = f.reshape(n, n)
-            fs.append(halves(f2, k0, k1))
-        corners.append(tuple(fs))
-
-    cols, bbox = _setup_cols_fields(corners[0], corners[1], corners[2],
-                                    width, height, fill_rule=fill_rule)
-
-    rs2_, tri_ids = grid_split_ids(grid_n)
-    return cols, bbox, {"row_size": rs2_, "tri_ids": tri_ids,
-                        "id_stride": 2}
-
-
-def grid_split_ids(grid_n: int):
-    """(stream row size, (T2,) true painter ids) for setup_cols_grid's
-    split-row stream order (camera-independent)."""
-    cells = grid_n - 1
-    rs2 = -(-cells // 32) * 32
-    rows2 = 2 * cells
-    pos = jnp.arange(rs2, dtype=jnp.int32)[None, :]
-    q = jnp.arange(rows2, dtype=jnp.int32)[:, None]
-    r = jnp.where(q < cells, q, q - cells)
-    k = jnp.where(q < cells, 0, 1)
-    return rs2, (r * (2 * cells) + 2 * pos + k).reshape(-1)
-
-
-def setup_cols_from_corners(c0, c1, c2, width: int, height: int,
-                            fill_rule: str = "inclusive",
-                            _presnapped: bool = False):
-    """Core triangle setup from per-corner (T, 8) vertex matrices
-    (columns: x_fb, y_fb, w_clip, var0, var1, var2, z_ndc, 0)."""
-    if fill_rule == "hw" and not _presnapped:
-        snap = lambda v: jnp.round(v * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
-        c0 = c0.at[:, 0].set(snap(c0[:, 0])).at[:, 1].set(snap(c0[:, 1]))
-        c1 = c1.at[:, 0].set(snap(c1[:, 0])).at[:, 1].set(snap(c1[:, 1]))
-        c2 = c2.at[:, 0].set(snap(c2[:, 0])).at[:, 1].set(snap(c2[:, 1]))
-    return _setup_cols_fields(
-        tuple(c0[:, j] for j in range(8)),
-        tuple(c1[:, j] for j in range(8)),
-        tuple(c2[:, j] for j in range(8)),
-        width, height, fill_rule=fill_rule)
-
-
-def setup_fields_core(c0, c1, c2, width: int, height: int,
-                      fill_rule: str = "inclusive"):
-    """Triangle setup from per-corner per-FIELD vectors (field order:
-    x_fb, y_fb, w_clip, var0, var1, var2, z_ndc, zero). Coordinates must
+def _setup_fields(c0, c1, c2, width: int, height: int,
+                  fill_rule: str = "inclusive"):
+    """Triangle setup from per-corner per-FIELD (T,) vectors (field order:
+    x_fb, y_fb, w_clip, var0, var1, var2, z_ndc). Coordinates must
     already be snapped when fill_rule == "hw".
 
-    Shape-polymorphic pure-elementwise core shared by the XLA setup paths
-    ((T,) vectors) and the vtx Pallas kernel ((1, 128) lane vectors traced
-    INSIDE the kernel) -- both see the exact same f32 ops in the same
-    order, so in-kernel setup is byte-identical by construction.
-
-    Returns (cols, px0, px1, py0, py1, valid): the NUM_COLS record column
-    vectors, the int32 pixel-center bbox (pre-invalid-encoding), and the
-    bool valid flag (already folded into cols[24])."""
+    Returns (cols, bbox): the NUM_COLS record column vectors (plus the
+    three bias columns under the hw rule) and the (T, 4) int32 pixel-center
+    bbox with the invalid encoding (x1 < x0) binning keys on."""
     x0, y0, w0, zn0 = c0[0], c0[1], c0[2], c0[6]
     x1, y1, w1, zn1 = c1[0], c1[1], c1[2], c1[6]
     x2, y2, w2, zn2 = c2[0], c2[1], c2[2], c2[6]
@@ -299,9 +149,8 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
     # src/terrain/pipeline.rs:128).
     neg0, neg1_, neg2 = w0 < 0.0, w1 < 0.0, w2 < 0.0
     odd_neg = neg0 ^ neg1_ ^ neg2
-    # select on f32 then compare (a bool-branch select lowers to an i1
-    # truncation Mosaic rejects); where(odd_neg, area2, -area2) > 0 is
-    # exactly where(odd_neg, area2 > 0, area2 < 0) -- sign flip is exact.
+    # where(odd_neg, area2, -area2) > 0 is exactly
+    # where(odd_neg, area2 > 0, area2 < 0) -- the sign flip is exact.
     front = jnp.where(odd_neg, area2, -area2) > 0.0
     finite = (jnp.isfinite(x0) & jnp.isfinite(x1) & jnp.isfinite(x2)
               & jnp.isfinite(y0) & jnp.isfinite(y1) & jnp.isfinite(y2))
@@ -424,7 +273,6 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
         zerob = jnp.zeros_like(x0)
 
         def edge_bias(ax, ay, bx, by):
-            # boolean algebra, not a bool-branch select (Mosaic-safe)
             horiz = ay == by
             topleft = (horiz & (bx > ax)) | (~horiz & (by < ay))
             return jnp.where(topleft | ~clean, zerob, bias)
@@ -433,15 +281,6 @@ def setup_fields_core(c0, c1, c2, width: int, height: int,
                  edge_bias(x2, y2, x0, y0),        # edge opp v1
                  edge_bias(x0, y0, x1, y1)]        # edge opp v2
 
-    return cols, px0, px1, py0, py1, valid
-
-
-def _setup_cols_fields(c0, c1, c2, width: int, height: int,
-                       fill_rule: str = "inclusive"):
-    """setup_fields_core + the (T, 4) int32 bbox with the invalid encoding
-    (x1 < x0) every binning/worklist consumer keys on."""
-    cols, px0, px1, py0, py1, valid = setup_fields_core(
-        c0, c1, c2, width, height, fill_rule=fill_rule)
     bbox = jnp.stack([jnp.where(valid, px0, width), jnp.where(valid, px1, -1),
                       jnp.where(valid, py0, height), jnp.where(valid, py1, -1)], axis=-1)
     return cols, bbox
@@ -456,11 +295,24 @@ def triangle_setup(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
     varyings: (N, 3) per-vertex attributes (perspective-interpolated).
     indices: (T, 3) int32 vertex indices (triangle list order == draw order).
     fill_rule "hw" adds the snapped top-left coverage biases at columns
-    31..33 (see setup_cols).
+    31..33 (see BIAS0_COL).
     """
-    cols, bbox = setup_cols(x_fb, y_fb, z_ndc, w_clip, varyings, indices,
-                            width, height, fill_rule=fill_rule)
-    cols = list(cols)
+    if fill_rule == "hw":
+        # Snap to the subpixel grid with round-half-even (matches the
+        # oracle's int(round(x * 256))). 1/256 is a power of two: the snap
+        # is exact in f32 for |x| < 2^15 px.
+        x_fb = jnp.round(x_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
+        y_fb = jnp.round(y_fb * _HW_SNAP) * jnp.float32(1.0 / _HW_SNAP)
+
+    # Pack all per-vertex data into one matrix and gather ROWS per corner:
+    # three (T, 7) row gathers instead of twenty-one 1-D element gathers.
+    vmat = jnp.stack([x_fb, y_fb, w_clip,
+                      varyings[:, 0], varyings[:, 1], varyings[:, 2],
+                      z_ndc], axis=-1)
+    corners = [vmat[indices[:, k]] for k in range(3)]     # (T, 7) each
+    cols, bbox = _setup_fields(
+        *(tuple(c[:, j] for j in range(7)) for c in corners),
+        width, height, fill_rule=fill_rule)
     zero_col = jnp.zeros_like(cols[0])
     cols += [zero_col] * (REC_WIDTH - len(cols))
     rec = jnp.stack(cols, axis=-1)  # (T, REC_WIDTH), one fused assembly
@@ -489,6 +341,9 @@ def tile_counts(bbox, width: int, height: int,
     ovx = (tx0[:, None] <= txs[None, :]) & (txs[None, :] <= tx1[:, None])  # (T, NTX)
     ovy = (ty0[:, None] <= tys[None, :]) & (tys[None, :] <= ty1[:, None])  # (T, NTY)
     # counts[tile_y, tile_x] = sum_t ovy[t, ty] * ovx[t, tx] -- a matmul.
+    # Exact at any matmul precision, TF32 included: the operands are 0/1
+    # (exact in every float format) and the f32 accumulator holds integer
+    # sums exactly below 2^24 triangles.
     counts = jnp.einsum("ty,tx->yx", ovy.astype(jnp.float32), ovx.astype(jnp.float32),
                         preferred_element_type=jnp.float32)
     return counts.astype(jnp.int32).reshape(-1)

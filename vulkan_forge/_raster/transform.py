@@ -11,7 +11,13 @@ float32; clip = proj @ (view @ world), matching the shader's
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# The vertex products run at full float32 precision: on a GPU an f32
+# matmul may otherwise run in TF32 (about 3 decimal digits), which would
+# move vertices by up to ~1e-3 relative and break per-device goldens.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def sample_height_nearest(heights: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
@@ -30,6 +36,13 @@ def sample_height_nearest(heights: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
 def analytic_height(x: jnp.ndarray, z: jnp.ndarray) -> jnp.ndarray:
     """Deterministic analytic fallback relief (src/shaders/terrain.wgsl:39-41)."""
     return jnp.sin(x * 1.3) * 0.25 + jnp.cos(z * 1.1) * 0.25
+
+
+def world_to_clip(world: jnp.ndarray, view: jnp.ndarray,
+                  proj: jnp.ndarray) -> jnp.ndarray:
+    """(N, 4) world positions -> clip space, ``proj * (view * world)``."""
+    view_pos = jnp.matmul(world, view.T.astype(jnp.float32), precision=_HIGHEST)
+    return jnp.matmul(view_pos, proj.T.astype(jnp.float32), precision=_HIGHEST)
 
 
 def terrain_vs(xyuv: jnp.ndarray, heights: jnp.ndarray, view: jnp.ndarray,
@@ -54,9 +67,25 @@ def terrain_vs(xyuv: jnp.ndarray, heights: jnp.ndarray, view: jnp.ndarray,
     wz = z * spacing
     world = jnp.stack([wx, wy, wz, jnp.ones_like(wx)], axis=-1)  # (N, 4)
 
-    view_pos = world @ view.T.astype(jnp.float32)
-    clip = view_pos @ proj.T.astype(jnp.float32)
+    clip = world_to_clip(world, view, proj)
     varyings = jnp.stack([h, x, z], axis=-1)
+    return clip, varyings
+
+
+def terrain_vs_extended(xyuv: jnp.ndarray, heights: jnp.ndarray,
+                        view: jnp.ndarray, proj: jnp.ndarray,
+                        spacing: jnp.ndarray, exaggeration: jnp.ndarray):
+    """Vertex stage of the extended pipeline (``Renderer.render_rgba``):
+    the real DEM height with no analytic fallback relief, and varyings
+    (height, u, v) for the fragment stage's height-texture normals."""
+    x = xyuv[:, 0]
+    z = xyuv[:, 1]
+    sp = jnp.maximum(spacing, 1e-8)
+    h = sample_height_nearest(heights, xyuv[:, 2:4])
+    world = jnp.stack([x * sp, h * exaggeration, z * sp,
+                       jnp.ones_like(x)], axis=-1)
+    clip = world_to_clip(world, view, proj)
+    varyings = jnp.stack([h, xyuv[:, 2], xyuv[:, 3]], axis=-1)
     return clip, varyings
 
 

@@ -189,7 +189,7 @@ class Renderer:
     def upload_height_r32f(self) -> None:
         """Upload the stored heights as the device height texture.
 
-        On TPU the R32Float texture (src/lib.rs:495-571) is just an (H, W)
+        The R32Float texture (src/lib.rs:495-571) is just an (H, W)
         float32 device array; 256-byte row padding is unnecessary, and the
         roundtrip is exact by construction.
         """
@@ -260,13 +260,8 @@ class Renderer:
         proj = (shift @ proj).astype(np.float32)
         return view, proj
 
-    def render_rgba(self) -> np.ndarray:
-        """Draw the uploaded terrain -> (H, W, 4) uint8.
-
-        Implements the documented pipeline the reference left as T3.2/C6
-        future work: grid mesh from the DEM, forward-difference normals,
-        Lambert + ambient floor, Reinhard tonemap in linear, sRGB encode.
-        """
+    def _draw_args(self):
+        """(args, kwargs) of the ``render_terrain_u8`` call render_rgba makes."""
         terr = self._require_terrain()
         xy, uv, idx = _mesh.make_grid(terr.width, terr.height,
                                       terr.spacing[0], terr.spacing[1])
@@ -284,19 +279,29 @@ class Renderer:
         # Heights were pre-multiplied by exaggeration at ingest and the mesh
         # is already in world units, so spacing/exaggeration enter the vertex
         # stage as 1; the true DEM spacing only scales the normals' slope.
+        return ((xyuv, tris, heights, view, proj),
+                dict(spacing=1.0, exaggeration=1.0,
+                     normal_spacing=float(terr.spacing[0]),
+                     h_min=self._terrain_meta.h_min,
+                     h_max=self._terrain_meta.h_max,
+                     exposure=self._globals.exposure,
+                     sun_dir=self._globals.sun_dir,
+                     lut=lut, width=self.width, height=self.height,
+                     fs_mode="extended"))
+
+    def render_rgba(self) -> np.ndarray:
+        """Draw the uploaded terrain -> (H, W, 4) uint8.
+
+        Implements the documented pipeline the reference left as T3.2/C6
+        future work: grid mesh from the DEM, forward-difference normals,
+        Lambert + ambient floor, Reinhard tonemap in linear, sRGB encode.
+        """
         import time
         import jax
         from . import _formats
+        args, kwargs = self._draw_args()
         t0 = time.perf_counter()
-        dev = _pipeline.render_terrain_u8(
-            xyuv, tris, heights, view, proj,
-            spacing=1.0, exaggeration=1.0,
-            normal_spacing=float(terr.spacing[0]),
-            h_min=self._terrain_meta.h_min, h_max=self._terrain_meta.h_max,
-            exposure=self._globals.exposure, sun_dir=self._globals.sun_dir,
-            lut=lut, width=self.width, height=self.height,
-            fs_mode="extended", row_size=2 * (terr.width - 1),
-            as_device=True)
+        dev = _pipeline.render_terrain_u8(*args, as_device=True, **kwargs)
         jax.block_until_ready(dev)
         t1 = time.perf_counter()
         img = _formats.u32_image_to_rgba_u8(jax.device_get(dev))

@@ -87,18 +87,21 @@ class _TerrainObjectBase:
 
     # ---- render ----
 
+    def _draw_args(self):
+        """(args, kwargs) of the ``render_terrain_u8`` call render_rgba makes."""
+        g = self._globals
+        return ((self._xyuv, self._indices.astype(np.int32).reshape(-1, 3),
+                 self._heights, self._view, self._proj),
+                dict(spacing=g.spacing, exaggeration=g.exaggeration,
+                     h_min=g.h_min, h_max=g.h_max,
+                     exposure=g.exposure, sun_dir=g.sun_dir,
+                     lut=self._lut, width=self.width, height=self.height,
+                     fs_mode="shipped"))
+
     def render_rgba(self) -> np.ndarray:
         """Shipped terrain pipeline -> (H, W, 4) uint8."""
-        g = self._globals
-        return _pipeline.render_terrain_u8(
-            self._xyuv, self._indices.astype(np.int32).reshape(-1, 3),
-            self._heights, self._view, self._proj,
-            spacing=g.spacing, exaggeration=g.exaggeration,
-            h_min=g.h_min, h_max=g.h_max,
-            exposure=g.exposure, sun_dir=g.sun_dir,
-            lut=self._lut, width=self.width, height=self.height,
-            fs_mode="shipped", row_size=2 * (self.grid - 1),
-            grid_n=self.grid)
+        args, kwargs = self._draw_args()
+        return _pipeline.render_terrain_u8(*args, **kwargs)
 
     def render_png(self, path: str) -> None:
         save_png_rgba(str(path), self.render_rgba())

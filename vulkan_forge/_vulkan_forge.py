@@ -2,7 +2,7 @@
 
 The reference exposes its PyO3 module as ``vulkan_forge._vulkan_forge`` (or
 top-level ``_vulkan_forge``); tests import it directly
-(e.g. tests/test_t31_integration.py, tests/test_camera.py). The TPU build is
+(e.g. tests/test_t31_integration.py, tests/test_camera.py). This rebuild is
 pure Python + JAX + a C++ runtime core, but keeps this module path so those
 imports keep working. Registration parity: src/lib.rs:962-976.
 """
